@@ -15,7 +15,15 @@
    kernel launches, then compares the kernel path with the plain path at
    fp32 on the same card;
 5. times each kernel, its plain version and a PyTorch library call with
-   CUDA events, and the path in requests/s.
+   CUDA events, and the path in requests/s;
+6. holds ``decode_attention`` against its plain version in bf16 and fp32,
+   at the serving shape and at a GQA shape;
+7. drives the token-level path, ``ServingEngine.prefill`` -> ``inject`` ->
+   ``decode_slate``, at the same width over the same feature plane (4
+   panes of 256 users), counting kernel launches, then compares its kernel
+   path with its plain path at fp32, teacher-forced over every decode
+   step, and times the phases, the kernels at the path's own inputs and
+   one profiled pane.
 
 It needs a CUDA device: without one it exits non-zero and prints no result.
 The line before the last is the card's name and power limit; the last line
@@ -42,6 +50,8 @@ N_USERS, N_EVENTS = 100_000, 3_200_000      # the feature-plane scale
 N_FRESH = 400_000                            # events after the snapshot
 FEATURE_LEN, BUFFER_LEN = 256, 64
 SERVE_BATCH, N_BATCHES = 256, 8
+PANE_PREFILL, PANE_INJECT, PANE_CAPACITY = 256, 64, 384  # token path
+N_PANES, SLATE_LEN = 4, 10
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int32": 67e12}
 TOL = {"bfloat16": 3e-2, "float32": 2e-5}    # as tests/test_kernels.py
@@ -358,7 +368,7 @@ def run_main_path(dev, gpu):
           f"(host clock) [{gpu}]")
     stage_times(plat, batches[1], now, gpu)
     compare_paths_fp32(dev, cfg, plat, batches[1], now)
-    return launches
+    return launches, plat, params, now
 
 
 def stage_times(plat, users, now, gpu):
@@ -456,6 +466,387 @@ def compare_paths_fp32(dev, cfg, plat, users, now):
                          "separated by more than the tolerance")
 
 
+# ----------------------------------------------------------------------
+# decode_attention
+# ----------------------------------------------------------------------
+
+def decode_inputs(dev, dtype, b, w, nq, nkv, hd, seed=SEED):
+    """A ring cache whose rows are partly filled, exactly full and
+    wrapped, with slots left unstored by left-padded prefills; the slot
+    of each row's new token is stored (written before it attends)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g).to(dev, dtype) for shape in
+               ((b, 1, nq, hd), (b, w, nkv, hd), (b, w, nkv, hd)))
+    pos = torch.randint(0, 3 * w, (b,), generator=g, dtype=torch.int32)
+    pos[:4] = torch.tensor([0, w // 2, w - 1, w], dtype=torch.int32)
+    stored = torch.rand((b, w), generator=g) < 0.85
+    stored[torch.arange(b), (pos % w).long()] = True
+    return q, k, v, pos.to(dev), stored.to(dev)
+
+
+def check_decode_attention(dev, report):
+    import torch
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    worst = 0.0
+    for shape in ((SERVE_BATCH, PANE_CAPACITY, 8, 8, 32),   # the ranker's
+                  (SERVE_BATCH, PANE_CAPACITY, 8, 2, 64)):  # GQA
+        for dtype in (torch.bfloat16, torch.float32):
+            kind = str(dtype).split(".")[1]
+            args = decode_inputs(dev, dtype, *shape)
+            got = decode_attention(*args)
+            want = decode_attention_ref(*args)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise SystemExit(f"decode_attention {kind}: non-finite output")
+            err = float((got.float() - want.float()).abs().max())
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=TOL[kind], rtol=TOL[kind])
+            if dtype == torch.bfloat16 and shape[3] == 8:
+                worst = err
+            print(f"decode_attention {kind} (B, W, nq, nkv, hd)={shape}: max "
+                  f"abs err {err:.3g} vs the plain version (tolerance "
+                  f"{TOL[kind]})")
+    report["decode_attention"] = dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/decode_attention/csrc/"
+               "decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention/decode_attention.py:63",
+        max_abs_err=worst)
+
+
+# ----------------------------------------------------------------------
+# The token-level path: prefill -> inject -> decode_slate
+# ----------------------------------------------------------------------
+
+def pane_inputs(eng, injector, users, now):
+    """The Gateway's pane assembly: snapshot histories padded right, fresh
+    suffixes (the newest inject_len events) padded left."""
+    from repro_torch.core.pipeline import items_to_tokens
+    items, _, valid = injector.batch.lookup(users, now)
+    toks = items_to_tokens(items, valid)
+    hists = [t[v > 0].tolist() for t, v in zip(toks, valid)]
+    sfx = injector.fresh_suffix_tokens(users, now, cap=eng.scfg.inject_len)
+    return (eng.pad_tokens(hists, eng.scfg.prefill_len),
+            eng.pad_tokens(sfx, eng.scfg.inject_len, align="left"))
+
+
+def serve_pane(eng, hist, sfx, slate_len=SLATE_LEN, times=None):
+    """prefill -> inject (prefill logits as the fallback) -> decode_slate;
+    with ``times``, appends each phase's ms (host clock, synchronised)."""
+    import torch
+
+    def phase(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        if times is not None:
+            torch.cuda.synchronize()
+            times.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+        return out
+
+    state = phase("prefill", eng.prefill, *hist)
+    state = phase("inject", eng.inject, state, *sfx,
+                  fallback_logits=state["logits"][:, -1])
+    slate = phase("decode_slate", eng.decode_slate, state,
+                  state["first_logits"], slate_len)
+    return state, slate
+
+
+def record_calls(module, name):
+    """Patch ``module.name`` with a wrapper that keeps a clone of the
+    arguments of its first call; returns (patcher, calls)."""
+    import torch
+    real = getattr(module, name)
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        if not calls:
+            calls.append(([a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args], dict(kwargs)))
+        return real(*args, **kwargs)
+    return mock.patch.object(module, name, wrapper), calls
+
+
+def run_token_path(dev, gpu, plat, params, now, report):
+    import torch
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    cfg = plat.model_cfg
+    scfg = ServingConfig(max_batch=SERVE_BATCH, prefill_len=PANE_PREFILL,
+                         inject_len=PANE_INJECT, cache_capacity=PANE_CAPACITY)
+    eng = ServingEngine(cfg, params, scfg, device=dev)
+    rng = np.random.RandomState(SEED + 1)
+    panes = [rng.choice(N_USERS, SERVE_BATCH, replace=False)
+             for _ in range(N_PANES + 1)]
+    t0 = time.perf_counter()
+    inputs = [pane_inputs(eng, plat.injector, u, now) for u in panes]
+    host_ms = (time.perf_counter() - t0) / len(panes) * 1e3
+    n_fresh = np.mean([s[1].sum(1).mean() for _, s in inputs])
+    n_hist = np.mean([h[1].sum(1).mean() for h, _ in inputs])
+    # warm-up pane, recording the kernels' inputs at the path's shapes
+    rec_fa, fa_calls = record_calls(attention_mod, "flash_attention")
+    rec_da, da_calls = record_calls(attention_mod, "decode_attention")
+    state = eng.prefill(*inputs[0][0])
+    with rec_fa:
+        state = eng.inject(state, *inputs[0][1],
+                           fallback_logits=state["logits"][:, -1])
+    with rec_da:
+        eng.decode_slate(state, state["first_logits"], SLATE_LEN)
+    torch.cuda.synchronize()
+
+    flash_attention.launches = decode_attention.launches = 0
+    times = {}
+    t0 = time.perf_counter()
+    slates = [serve_pane(eng, *inp, times=times)[1] for inp in inputs[1:]]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches}
+    print(f"token path: {N_PANES} panes x {SERVE_BATCH} users through "
+          f"ServingEngine prefill -> inject -> decode_slate({SLATE_LEN}) "
+          f"(mean {n_hist:.1f} history and {n_fresh:.2f} fresh tokens a "
+          f"row); launches {launches}, expected decode_attention "
+          f"{N_PANES * (SLATE_LEN - 1) * cfg.n_layers}")
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"a kernel of the token path never launched: "
+                         f"{launches}")
+    for s in slates:
+        if s.shape != (SERVE_BATCH, SLATE_LEN) or s.min() < 0 \
+                or s.max() >= cfg.vocab_size:
+            raise SystemExit(f"token path: bad slate, shape {s.shape}, "
+                             f"range [{s.min()}, {s.max()}]")
+        if any(len(set(r.tolist())) != SLATE_LEN for r in s):
+            raise SystemExit("token path: a slate repeats a token")
+    print(f"token path: every slate holds {SLATE_LEN} distinct token ids "
+          f"below {cfg.vocab_size}")
+    phases = {k: float(np.mean(v)) for k, v in times.items()}
+    print(f"time token path bf16: {N_PANES * SERVE_BATCH / elapsed:.1f} "
+          f"requests/s, {elapsed / N_PANES * 1e3:.2f} ms per pane of "
+          f"{SERVE_BATCH} (host clock); per pane prefill "
+          f"{phases['prefill']:.3f} ms, inject {phases['inject']:.3f} ms, "
+          f"decode_slate {phases['decode_slate']:.3f} ms (host clock, "
+          f"synchronised), host pane assembly {host_ms:.2f} ms [{gpu}]")
+    prefill_logits = SERVE_BATCH * PANE_PREFILL * cfg.vocab_padded * 4
+    print(f"token path: prefill returns {prefill_logits / 1e9:.2f} GB of "
+          f"f32 logits per pane, of which the path reads [:, -1]")
+    time_decode_attention(da_calls[0][0], report, gpu)
+    time_flash_extend(fa_calls[0][0], fa_calls[0][1], gpu)
+    profile_pane(eng, inputs[1], gpu)
+    compare_token_paths_fp32(dev, cfg, inputs[1])
+    return launches
+
+
+def time_decode_attention(args, report, gpu):
+    """The kernel, its plain version and SDPA at Sq = 1 on the inputs of
+    the token path's first decode_attention call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, ring_live)
+
+    q, k, v, pos, stored = args
+    b, w, nkv, hd = k.shape
+    nq = q.shape[2]
+    kind = str(q.dtype).split(".")[1]
+    call_ms = time_ms(lambda: decode_attention(*args))
+    ms, _ = device_ms(lambda: decode_attention(*args))
+    plain_ms, _ = device_ms(lambda: decode_attention_ref(*args), 5, 1)
+    live = ring_live(pos, stored)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = live[:, None, None, :]
+    gqa = {"enable_gqa": True} if nq != nkv else {}
+    library_ms, lib_kernels = device_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                               **gqa))
+    n_live = int(live.sum())
+    item = q.element_size()
+    # q and o once, the K/V rows of live slots once, pos and stored once
+    n_bytes = 2 * q.numel() * item + 2 * n_live * nkv * hd * item \
+        + 4 * b + b * w
+    n_ops = 4 * hd * n_live * nq
+    bound_ms, bound_by = bound(n_bytes, n_ops, kind)
+    full_ms = 2 * k.numel() * item / HBM_BYTES_PER_S * 1e3
+    print(f"time decode_attention {kind} at the token path's inputs (B={b}, "
+          f"W={w}, nq={nq}, nkv={nkv}, hd={hd}, {n_live / b:.1f} live slots "
+          f"a row): kernel {ms:.4f} ms on the device ({call_ms:.4f} ms per "
+          f"wrapper call, CUDA events), plain {plain_ms:.4f} ms, sdpa "
+          f"{library_ms:.4f} ms ({', '.join(x[:40] for x in lib_kernels)}), "
+          f"bound {bound_ms:.5f} ms ({bound_by}, live slots; reading the "
+          f"whole cache once would take {full_ms:.4f} ms) [{gpu}]")
+    report["decode_attention"].update(ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by,
+                                      library_ms=library_ms)
+
+
+def time_flash_extend(args, kwargs, gpu):
+    """flash_attention at the extend shape (a 64-token suffix against the
+    256-slot prefix), on the token path's own inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (NEG_INF,
+                                                         attention_mask,
+                                                         attention_ref)
+
+    q, k, v, qpos, kpos, kvalid = args
+    b, sq, nq, hd = q.shape
+    sk = k.shape[1]
+    kind = str(q.dtype).split(".")[1]
+    ms, _ = device_ms(lambda: flash_attention(*args, **kwargs))
+    plain_ms, _ = device_ms(lambda: attention_ref(*args, **kwargs), 5, 1)
+    mask = attention_mask(qpos, kpos, kvalid, kwargs.get("window", 0))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    bias = torch.where(mask, 0.0, NEG_INF).to(q.dtype)[:, None]
+    library_ms, _ = device_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias))
+    item = q.element_size()
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * item + 4 * b * (sq + sk) \
+        + b * sk
+    live = mask.sum(-1)                     # (B, Sq) live keys a query
+    n_ops = float(nq * (4 * hd * live.sum() + hd * sk * (live == 0).sum()))
+    bound_ms, bound_by = bound(n_bytes, n_ops, kind)
+    print(f"time flash_attention {kind} at the extend shape (B={b}, Sq={sq}, "
+          f"Sk={sk}, {nq} heads of {hd}): kernel {ms:.4f} ms on the device, "
+          f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}) [{gpu}]")
+
+
+def profile_pane(eng, inputs, gpu):
+    """One pane under the profiler: device-busy time against the host
+    clock, and the kernels that take the time."""
+    import torch
+    t0 = time.perf_counter()
+    for _ in range(3):
+        serve_pane(eng, *inputs)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+    busy_ms, per_kernel = device_ms(lambda: serve_pane(eng, *inputs), 3, 1)
+    print(f"time token pane: {wall_ms:.2f} ms wall (host clock), "
+          f"{busy_ms:.3f} ms of kernels on the device, idle share "
+          f"{1 - busy_ms / wall_ms:.3f} [{gpu}]")
+    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  kernel {ms:8.4f} ms/pane  {name[:90]}")
+    hist, sfx = inputs
+    pre = eng.prefill(*hist)
+    inj = eng.inject(pre, *sfx, fallback_logits=pre["logits"][:, -1])
+    phases = {
+        "prefill": lambda: eng.prefill(*hist),
+        "inject": lambda: eng.inject(pre, *sfx,
+                                     fallback_logits=pre["logits"][:, -1]),
+        "decode_slate": lambda: eng.decode_slate(inj, inj["first_logits"],
+                                                 SLATE_LEN)}
+    busy = {name: device_ms(fn, 3, 1)[0] for name, fn in phases.items()}
+    print("time token pane device busy by phase: " + ", ".join(
+        f"{name} {ms:.3f} ms" for name, ms in busy.items()) + f" [{gpu}]")
+    host_ops(phases["decode_slate"], gpu)
+
+
+def host_ops(fn, gpu, top=8):
+    """The host's side of ``fn()``: the operators that take the most CPU
+    time (self time, profiler), and how many times each is called."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
+    total = sum(e.self_cpu_time_total for e in evts) / 1e3
+    calls = sum(e.count for e in evts if e.key.startswith("aten::"))
+    print(f"time decode_slate host: {total:.2f} ms of operator CPU time, "
+          f"{calls} aten operator calls, nested ones included [{gpu}]")
+    for e in sorted(evts, key=lambda e: -e.self_cpu_time_total)[:top]:
+        print(f"  host {e.self_cpu_time_total / 1e3:8.3f} ms  "
+              f"{e.count:5d} calls  {e.key[:60]}")
+
+
+def compare_token_paths_fp32(dev, cfg, inputs):
+    """The token path's kernel path against its plain path at fp32 on the
+    card: first logits within 1e-4; then, teacher-forced on the plain
+    path's picks, every decode step's logits within 1e-4; slates equal on
+    every row where no pick's top-2 gap is within 1e-4."""
+    import torch
+    from repro_torch.core import injection as injection_mod
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.history_merge.ref import history_merge_ref
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import ServingConfig, ServingEngine
+    from repro_torch.serving.engine import NEG_INF
+
+    params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                         torch.float32, dev)
+    eng = ServingEngine(cfg, params, ServingConfig(
+        max_batch=SERVE_BATCH, prefill_len=PANE_PREFILL,
+        inject_len=PANE_INJECT, cache_capacity=PANE_CAPACITY), device=dev)
+    hist, sfx = inputs
+
+    def first_state():
+        state = eng.prefill(*hist)
+        return eng.inject(state, *sfx, fallback_logits=state["logits"][:, -1])
+
+    def steps(state, picks=None):
+        """Greedy picks (or the given ones) and each step's logits."""
+        dec = eng.finalize(state)
+        logits = state["first_logits"]
+        mask = torch.zeros_like(logits, dtype=torch.bool)
+        rows = torch.arange(logits.shape[0], device=dev)
+        out_picks, out_logits, gaps = [], [logits], []
+        for i in range(SLATE_LEN):
+            masked = torch.where(mask, NEG_INF, logits)
+            top2 = masked.topk(2, dim=-1).values
+            gaps.append(top2[:, 0] - top2[:, 1])
+            tok = masked.argmax(-1).to(torch.int32) if picks is None \
+                else picks[i]
+            out_picks.append(tok)
+            mask[rows, tok.long()] = True
+            if i < SLATE_LEN - 1:
+                logits, dec = eng.decode(dec, tok[:, None])
+                out_logits.append(logits)
+        return out_picks, out_logits, torch.stack(gaps, 1)
+
+    with mock.patch.object(attention_mod, "flash_attention", attention_ref), \
+            mock.patch.object(attention_mod, "decode_attention",
+                              decode_attention_ref), \
+            mock.patch.object(injection_mod, "history_merge",
+                              history_merge_ref):
+        p_state = first_state()
+        p_slate = eng.decode_slate(p_state, p_state["first_logits"],
+                                   SLATE_LEN)
+        p_picks, p_logits, gaps = steps(p_state)
+    if not np.array_equal(torch.stack(p_picks, 1).cpu().numpy(), p_slate):
+        raise SystemExit("the plain path's step loop and decode_slate "
+                         "disagree")
+    k_state = first_state()
+    k_slate = eng.decode_slate(k_state, k_state["first_logits"], SLATE_LEN)
+    _, k_logits, _ = steps(k_state, picks=p_picks)
+    errs = []
+    for i, (kl, pl) in enumerate(zip(k_logits, p_logits)):
+        if not torch.isfinite(kl[:, :cfg.vocab_size]).all():
+            raise SystemExit(f"token path: non-finite logits at step {i}")
+        errs.append(float((kl - pl).abs().max()))
+        torch.testing.assert_close(kl, pl, atol=E2E_TOL, rtol=E2E_TOL)
+    separated = (gaps > E2E_TOL).all(1).cpu().numpy()
+    flipped = (k_slate != p_slate).any(1)
+    print(f"fp32 token path, kernels vs plain versions, {SERVE_BATCH} rows: "
+          f"first logits max abs err {errs[0]:.3g}, teacher-forced decode "
+          f"steps max abs err {max(errs[1:]):.3g} (tolerance {E2E_TOL}); "
+          f"{int(flipped.sum())} slates differ, {int(separated.sum())} rows "
+          f"with every top-2 gap > {E2E_TOL}")
+    if (flipped & separated).any():
+        raise SystemExit("a token-path slate differs on a row whose picks "
+                         "are separated by more than the tolerance")
+
+
 def main() -> int:
     import torch
 
@@ -478,10 +869,14 @@ def main() -> int:
     report = {}
     check_history_merge(dev, report, gpu)
     check_flash_attention(dev, report, gpu)
-    launches = run_main_path(dev, gpu)
+    launches, plat, params, now = run_main_path(dev, gpu)
+    check_decode_attention(dev, report)
+    token_launches = run_token_path(dev, gpu, plat, params, now, report)
     missing = set(names) ^ set(report)
     if missing:
         raise SystemExit(f"kernels without a check: {sorted(missing)}")
+    for name, n in token_launches.items():
+        launches[name] = launches.get(name, 0) + n
     kernels = [dict(report[n], launches=launches[n]) for n in names]
     print(json.dumps({"kernels": kernels}))
     print(gpu)

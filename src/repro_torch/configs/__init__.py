@@ -1,3 +1,3 @@
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, get_config, list_configs, pad_vocab, register,
+    ModelConfig, get_config, list_configs, pad_vocab, reduced, register,
 )

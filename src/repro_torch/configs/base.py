@@ -128,3 +128,27 @@ def _ensure_loaded() -> None:
         return
     from repro_torch.configs import archs  # noqa: F401
 
+
+
+def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 256,
+            max_experts: int = 4, vocab: int = 512) -> ModelConfig:
+    """A tiny same-family variant for CPU smoke tests (2L, d_model<=512, <=4e)."""
+    n_heads = max(2, min(cfg.n_heads, 4))
+    n_kv = max(1, min(cfg.n_kv_heads, 2))
+    moe = None
+    if cfg.moe is not None:
+        moe = dataclasses.replace(
+            cfg.moe, n_experts=min(cfg.moe.n_experts, max_experts),
+            top_k=min(cfg.moe.top_k, 2))
+    ssm = None
+    if cfg.ssm is not None:
+        ssm = dataclasses.replace(
+            cfg.ssm, d_state=32, head_dim=32, chunk_size=32,
+            attn_period=min(cfg.ssm.attn_period, n_layers) if cfg.ssm.attn_period else 0,
+            attn_offset=min(cfg.ssm.attn_offset, n_layers - 1))
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-reduced", n_layers=n_layers, d_model=d_model,
+        n_heads=n_heads, n_kv_heads=n_kv, head_dim=d_model // n_heads,
+        d_ff=max(64, min(cfg.d_ff, 2 * d_model)), vocab_size=vocab,
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
+        moe=moe, ssm=ssm)

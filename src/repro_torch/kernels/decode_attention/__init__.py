@@ -1,0 +1,3 @@
+from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: F401
+from repro_torch.kernels.decode_attention.ref import (  # noqa: F401
+    decode_attention_ref, ring_bias)

@@ -1,18 +1,22 @@
-"""GQA self-attention over a full sequence, for a dense single-device stack.
+"""GQA attention for a dense single-device stack: full-sequence (prefill,
+extend) and one-token decode against a ring KV cache.
 
-The contraction runs in the ``flash_attention`` op: the hand-written CUDA
-kernel on the card, its plain version on the CPU. Masks are built from
-positions plus key validity exactly as the JAX package's
-``attention_full`` builds them (causal by position, then the sliding
-window, then ``valid``).
+The contractions run in the ``flash_attention`` and ``decode_attention``
+ops: the hand-written CUDA kernels on the card, their plain versions on
+the CPU. Masks are built exactly as the JAX package's ``attention_full``
+and ``attention_decode`` build them: causal by position, then the sliding
+window, then key validity; and for decode the ring validity of each slot.
+Keys are stored RoPE-rotated, so a ring overwrite needs no re-rotation.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import scaled_init
 from repro_torch.models.rope import apply_rope
@@ -48,19 +52,123 @@ def _project_qkv(params, x, positions, cfg: ModelConfig):
 
 def attention_full(params, x, positions, cfg: ModelConfig, *,
                    valid: Optional[torch.Tensor] = None,
+                   prefix_kv: Optional[Dict[str, torch.Tensor]] = None,
+                   prefix_positions: Optional[torch.Tensor] = None,
+                   prefix_valid: Optional[torch.Tensor] = None,
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal (optionally sliding-window) self-attention over a full sequence.
 
     x (B,S,d); positions (S,) or (B,S); valid (B,S) bool key mask. Returns
     (output (B,S,d), {"k", "v"} each (B,S,nkv,hd)).
+
+    ``prefix_kv``: the K/V of a cached prefix, (B,Sp,nkv,hd) each — the
+    incremental prefill of the paper's injection: only the suffix ``x`` is
+    computed and its queries attend to prefix + suffix. The prefix keys'
+    positions default to their slot indices 0..Sp-1, as in the JAX
+    package. The returned K/V cover prefix + suffix.
     """
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, positions, cfg)
-    pos = positions.to(torch.int32).expand(b, s).contiguous()
-    kvalid = (valid.to(torch.bool).contiguous() if valid is not None
+    qpos = positions.to(torch.int32).expand(b, s).contiguous()
+    kpos = qpos
+    kvalid = (valid.to(torch.bool) if valid is not None
               else torch.ones((b, s), dtype=torch.bool, device=x.device))
+    if prefix_kv is not None:
+        sp = prefix_kv["k"].shape[1]
+        k = torch.cat([prefix_kv["k"], k], dim=1)
+        v = torch.cat([prefix_kv["v"], v], dim=1)
+        ppos = (prefix_positions.to(torch.int32) if prefix_positions is not None
+                else torch.arange(sp, dtype=torch.int32, device=x.device))
+        kpos = torch.cat([ppos.expand(b, sp), kpos], dim=1)
+        pval = (prefix_valid.to(torch.bool) if prefix_valid is not None
+                else torch.ones((b, sp), dtype=torch.bool, device=x.device))
+        kvalid = torch.cat([pval, kvalid], dim=1)
     out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          pos, pos, kvalid,
+                          qpos, kpos.contiguous(), kvalid.contiguous(),
                           window=cfg.sliding_window)
     y = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
     return y, {"k": k, "v": v}
+
+
+# ----------------------------------------------------------------------
+# Decode path: ring-buffer KV cache
+# ----------------------------------------------------------------------
+
+def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int,
+                  dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
+    """One attention layer's empty cache. ``valid`` marks slots holding real
+    tokens; it starts all True, as in the JAX package (the position logic
+    gates a fresh session)."""
+    nkv, hd = cfg.n_kv_heads, cfg.head_dim_
+    return {
+        "k": torch.zeros((batch, capacity, nkv, hd), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, capacity, nkv, hd), dtype=dtype,
+                         device=device),
+        "valid": torch.ones((batch, capacity), dtype=torch.bool,
+                            device=device),
+    }
+
+
+def cache_from_prefill(kv: Dict[str, torch.Tensor], capacity: int,
+                       valid: Optional[torch.Tensor] = None,
+                       ) -> Dict[str, torch.Tensor]:
+    """A ring decode cache from prefill K/V (B,S,nkv,hd); keeps the trailing
+    window when the prefill is longer than ``capacity``. ``valid`` (B,S) is
+    the prefill pad mask: each row is first compacted, valid slots to the
+    front in their order (a stable sort), so every real entry sits below
+    the decode position."""
+    k, v = kv["k"], kv["v"]
+    b, s = k.shape[:2]
+    if valid is None:
+        valid = torch.ones((b, s), dtype=torch.bool, device=k.device)
+    else:
+        valid = valid.to(torch.bool)
+        perm = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)
+        k = torch.take_along_dim(k, perm[:, :, None, None], dim=1)
+        v = torch.take_along_dim(v, perm[:, :, None, None], dim=1)
+        valid = torch.take_along_dim(valid, perm, dim=1)
+    if s >= capacity:
+        # ring layout: the entry of position p sits at slot p % capacity;
+        # after s tokens the slots hold positions [s - capacity, s)
+        shift = s % capacity
+        return {"k": torch.roll(k[:, s - capacity:], shift, dims=1),
+                "v": torch.roll(v[:, s - capacity:], shift, dims=1),
+                "valid": torch.roll(valid[:, s - capacity:], shift, dims=1)}
+    pad = capacity - s
+    return {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
+            "v": F.pad(v, (0, 0, 0, 0, 0, pad)),
+            "valid": F.pad(valid, (0, pad))}
+
+
+def attention_decode(params, x, pos, cache, cfg: ModelConfig, *,
+                     inplace: bool = False,
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode step.
+
+    x (B,1,d); pos (B,) int32, the new token's absolute position (tokens
+    already in context); cache {"k", "v"[, "valid"]} with k/v (B,W,nkv,hd).
+    Returns (out (B,1,d), updated cache). The new K/V are written to slot
+    pos % W before the token attends, so it attends to itself. The
+    caller's cache is left as it was unless ``inplace``, which writes into
+    it (for a caller that owns the cache and discards the old one).
+    """
+    b = x.shape[0]
+    w = cache["k"].shape[1]
+    pos = pos.to(torch.int32)
+    q, k_new, v_new = _project_qkv(params, x, pos[:, None], cfg)
+    slot = (pos % w).long()
+    rows = torch.arange(b, device=x.device)
+    stored = cache.get("valid")
+    if stored is None:
+        stored = torch.ones((b, w), dtype=torch.bool, device=x.device)
+    elif not inplace:
+        stored = stored.clone()
+    k, v = ((cache["k"], cache["v"]) if inplace
+            else (cache["k"].clone(), cache["v"].clone()))
+    k[rows, slot] = k_new[:, 0]
+    v[rows, slot] = v_new[:, 0]
+    stored[rows, slot] = True
+    out = decode_attention(q.contiguous(), k, v, pos.contiguous(), stored)
+    y = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
+    return y, {"k": k, "v": v, "valid": stored}

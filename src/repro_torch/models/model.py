@@ -4,6 +4,13 @@ Parameters keep the JAX package's tree (``init_params`` there): per-layer
 params stacked as ``blocks["pos{p}"]`` with a leading repeat dim R =
 n_layers / P, where P is the period of the layer-kind pattern. The JAX
 package scans over the R repeats; here the stack is a loop over them.
+Caches keep its tree too: ``{"pos{p}": {"k", "v"[, "valid"]}}``, each leaf
+with the leading R dim.
+
+Entry points: ``forward`` (full-sequence logits), ``prefill`` (logits and
+the per-layer K/V), ``extend`` (the injected suffix against a prefill
+cache), ``decode_step`` (one token against a ring cache), and the cache
+builders ``init_cache`` and ``cache_from_prefill``.
 """
 from __future__ import annotations
 
@@ -107,13 +114,47 @@ def _take(tree, r: int):
             for k, v in tree.items()}
 
 
-def _layer(lp, x, positions, valid, cfg: ModelConfig):
+def _layer(lp, x, positions, valid, cfg: ModelConfig, *, mode="forward",
+           cache=None, prefix_valid=None, inplace=False):
+    """One block. Returns (x, cache_out): the layer's K/V for "prefill" and
+    "extend" (prefix + suffix), its updated ring cache for "decode", None
+    for "forward"."""
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
-    mix, _ = attn_mod.attention_full(lp["attn"], h, positions, cfg,
-                                     valid=valid)
+    if mode == "decode":
+        mix, cache_out = attn_mod.attention_decode(
+            lp["attn"], h, positions, cache, cfg, inplace=inplace)
+    else:
+        mix, kv = attn_mod.attention_full(
+            lp["attn"], h, positions, cfg, valid=valid,
+            prefix_kv=cache if mode == "extend" else None,
+            prefix_valid=prefix_valid)
+        cache_out = kv if mode in ("prefill", "extend") else None
     x = x + mix
     h = rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    return x + mlp(lp["mlp"], h)
+    return x + mlp(lp["mlp"], h), cache_out
+
+
+def _run_stack(params, x, cfg: ModelConfig, *, mode, positions, valid=None,
+               caches=None, prefix_valid=None, inplace=False):
+    """The R x P blocks in order. Returns (x, caches_out) with caches_out
+    stacked over R like the JAX scan's output, or None for "forward".
+    With ``inplace`` (decode only) the ring writes go into ``caches``'
+    own tensors, which are returned."""
+    pat = pattern_sig(cfg)
+    outs = {f"pos{p}": [] for p in range(len(pat))}
+    for r in range(cfg.n_layers // len(pat)):
+        for p in range(len(pat)):
+            key = f"pos{p}"
+            cache = None if caches is None else _take(caches[key], r)
+            x, c_out = _layer(_take(params["blocks"][key], r), x, positions,
+                              valid, cfg, mode=mode, cache=cache,
+                              prefix_valid=prefix_valid, inplace=inplace)
+            outs[key].append(c_out)
+    if mode == "forward":
+        return x, None
+    if inplace and all("valid" in caches[k] for k in outs):
+        return x, caches
+    return x, {k: _stack(v) for k, v in outs.items()}
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -127,6 +168,10 @@ def _logits(params, cfg: ModelConfig, x):
     return logits
 
 
+def _embed(params, tokens):
+    return params["embed"]["table"][tokens.long()]
+
+
 def forward(params, cfg: ModelConfig, tokens, *, positions=None, valid=None,
             last_only: bool = False) -> torch.Tensor:
     """Logits (B, S, Vp) fp32, or (B, 1, Vp) of the last position alone
@@ -135,19 +180,101 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None, valid=None,
     tokens (B,S) int; positions (B,S) or (S,), default 0..S-1; valid (B,S)
     bool key mask (left padding)."""
     _check_dense(cfg)
-    b, s = tokens.shape
-    x = params["embed"]["table"][tokens.long()]
     if positions is None:
-        positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
-    pat = pattern_sig(cfg)
-    for r in range(cfg.n_layers // len(pat)):
-        for p in range(len(pat)):
-            x = _layer(_take(params["blocks"][f"pos{p}"], r), x, positions,
-                       valid, cfg)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)
+    x, _ = _run_stack(params, _embed(params, tokens), cfg, mode="forward",
+                      positions=positions, valid=valid)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
     return _logits(params, cfg, x)
+
+
+def prefill(params, cfg: ModelConfig, tokens, *, positions=None, valid=None,
+            logits_last_only: bool = False):
+    """Full-sequence pass that also returns the per-layer K/V. Returns
+    (logits (B,S,Vp) fp32, or (B,1,Vp) with ``logits_last_only``; caches
+    {"pos{p}": {"k", "v"}} each (R,B,S,nkv,hd))."""
+    _check_dense(cfg)
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)
+    x, caches = _run_stack(params, _embed(params, tokens), cfg,
+                           mode="prefill", positions=positions, valid=valid)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if logits_last_only:
+        x = x[:, -1:]
+    return _logits(params, cfg, x), caches
+
+
+def extend(params, cfg: ModelConfig, caches, tokens, start_pos, *,
+           valid=None, prefix_valid=None):
+    """Incremental prefill, the paper's injection: run only the ``tokens``
+    suffix (B,Ss) against a prefill cache. start_pos (B,) is each row's
+    first suffix position; the prefix keys keep their slot indices as
+    positions. Returns (logits over the suffix (B,Ss,Vp), caches covering
+    prefix + suffix)."""
+    _check_dense(cfg)
+    positions = start_pos.to(torch.int32)[:, None] + torch.arange(
+        tokens.shape[1], dtype=torch.int32, device=tokens.device)[None, :]
+    x, caches_out = _run_stack(params, _embed(params, tokens), cfg,
+                               mode="extend", positions=positions,
+                               valid=valid, caches=caches,
+                               prefix_valid=prefix_valid)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _logits(params, cfg, x), caches_out
+
+
+def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
+                inplace: bool = False):
+    """One-token serve step. tokens (B,1); pos (B,) int32, the number of
+    tokens already in the cache (the new token's position). Returns
+    (logits (B,1,Vp), updated ring caches). The caller's caches are left
+    as they were unless ``inplace``."""
+    _check_dense(cfg)
+    x, caches_out = _run_stack(params, _embed(params, tokens), cfg,
+                               mode="decode", positions=pos, caches=caches,
+                               inplace=inplace)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _logits(params, cfg, x), caches_out
+
+
+# ----------------------------------------------------------------------
+# Cache construction
+# ----------------------------------------------------------------------
+
+def _capacity(cfg: ModelConfig, capacity: int) -> int:
+    """KV slots: clamped to the sliding window when the arch has one."""
+    return min(capacity, cfg.sliding_window) if cfg.sliding_window \
+        else capacity
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int,
+               dtype=torch.bfloat16, device="cuda"):
+    """An empty ring decode cache, {"pos{p}": {"k", "v", "valid"}} with the
+    leading R dim."""
+    _check_dense(cfg)
+    pat = pattern_sig(cfg)
+    R = cfg.n_layers // len(pat)
+    one = attn_mod.init_kv_cache(cfg, batch, _capacity(cfg, capacity),
+                                 dtype, device)
+    return {f"pos{p}": {k: v[None].repeat((R,) + (1,) * v.dim())
+                        for k, v in one.items()} for p in range(len(pat))}
+
+
+def cache_from_prefill(cfg: ModelConfig, caches, capacity: int, valid=None):
+    """Prefill (or extend) K/V -> ring decode cache. ``valid`` (B,S): the
+    pad mask; padded slots stay masked in the ring so decode never attends
+    them."""
+    _check_dense(cfg)
+    cap = _capacity(cfg, capacity)
+    out = {}
+    for key, kv in caches.items():
+        per_r = [attn_mod.cache_from_prefill(_take(kv, r), cap, valid)
+                 for r in range(kv["k"].shape[0])]
+        out[key] = _stack(per_r)
+    return out
 
 
 def _as_module(tree) -> nn.Module:
@@ -172,3 +299,25 @@ class Ranker(nn.Module):
                 last_only: bool = False) -> torch.Tensor:
         return forward(self.params, self.cfg, tokens, positions=positions,
                        valid=valid, last_only=last_only)
+
+    def prefill(self, tokens, *, positions=None, valid=None,
+                logits_last_only: bool = False):
+        return prefill(self.params, self.cfg, tokens, positions=positions,
+                       valid=valid, logits_last_only=logits_last_only)
+
+    def extend(self, caches, tokens, start_pos, *, valid=None,
+               prefix_valid=None):
+        return extend(self.params, self.cfg, caches, tokens, start_pos,
+                      valid=valid, prefix_valid=prefix_valid)
+
+    def decode_step(self, caches, tokens, pos, *, inplace: bool = False):
+        return decode_step(self.params, self.cfg, caches, tokens, pos,
+                           inplace=inplace)
+
+    def init_cache(self, batch: int, capacity: int):
+        table = self.params["embed"]["table"]
+        return init_cache(self.cfg, batch, capacity, table.dtype,
+                          table.device)
+
+    def cache_from_prefill(self, caches, capacity: int, valid=None):
+        return cache_from_prefill(self.cfg, caches, capacity, valid)

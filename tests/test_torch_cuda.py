@@ -5,15 +5,18 @@ machine with the card (no JAX needed there):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-``history_merge`` must be bit-equal to its plain version. ``flash_attention``
-must be within ``tests/test_kernels.py``'s tolerances: 2e-5 in fp32
-(different summation order), 3e-2 in bf16 (the plain version rounds the
-probabilities to bf16 before the PV product, the kernel keeps them f32).
+``history_merge`` must be bit-equal to its plain version.
+``flash_attention`` and ``decode_attention`` must be within
+``tests/test_kernels.py``'s tolerances: 2e-5 in fp32 (different summation
+order), 3e-2 in bf16 (the plain versions round the probabilities to bf16
+before the PV product, the kernels keep them f32).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.history_merge.ops import history_merge
@@ -65,6 +68,7 @@ def test_history_merge_rejects_bad_input(cuda):
     (3, 100, 100, 4, 2, 16, 0),
     (3, 77, 77, 4, 1, 64, 16),         # window, MQA, ragged tiles
     (2, 40, 200, 8, 2, 128, 0),        # Sk > Sq (a prefix of keys)
+    (256, 64, 320, 8, 8, 32, 0),       # extend: a 64-token suffix
     (2, 130, 130, 2, 2, 128, 33),
 ])
 def test_flash_attention_kernel_vs_plain(cuda, dtype, b, sq, sk, nq, nkv, hd,
@@ -93,3 +97,49 @@ def test_flash_attention_rejects_bad_input(cuda):
     ok = torch.ones((1, 8), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
         flash_attention(q, q, q, pos, pos, ok)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,w,nq,nkv,hd", [
+    (256, 384, 8, 8, 32),    # the serving shape
+    (16, 384, 8, 2, 64),     # GQA
+    (5, 100, 4, 2, 16),      # W not a multiple of the tile
+    (5, 77, 8, 1, 128),      # MQA, hd 128
+    (3, 33, 16, 1, 32),      # the largest group the kernel takes
+])
+def test_decode_attention_kernel_vs_plain(cuda, dtype, b, w, nq, nkv, hd):
+    """Partial, exactly full and wrapped rings, slots left unstored by
+    left-padded prefills, and a row with no live slot."""
+    g = torch.Generator(device="cpu").manual_seed(w * hd + nq)
+    q, k, v = (torch.randn(shape, generator=g).to(cuda, dtype) for shape in
+               ((b, 1, nq, hd), (b, w, nkv, hd), (b, w, nkv, hd)))
+    pos = torch.randint(0, 3 * w, (b,), generator=g, dtype=torch.int32)
+    pos[:3] = torch.tensor([w // 3, w - 1, w], dtype=torch.int32)[:b]
+    stored = torch.rand((b, w), generator=g) < 0.8
+    stored[torch.arange(b), (pos % w).long()] = True
+    stored[-1] = False
+    pos, stored = pos.to(cuda), stored.to(cuda)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, pos, stored)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    want = decode_attention_ref(q, k, v, pos, stored)
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_decode_attention_rejects_bad_input(cuda):
+    pos = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    ok = torch.ones((2, 8), dtype=torch.bool, device=cuda)
+    q = torch.zeros((2, 1, 2, 24), device=cuda)  # head dim 24 unsupported
+    with pytest.raises(ValueError):
+        decode_attention(q, torch.zeros((2, 8, 2, 24), device=cuda),
+                         torch.zeros((2, 8, 2, 24), device=cuda), pos, ok)
+    q = torch.zeros((2, 1, 32, 32), device=cuda)  # 32 heads on one KV head
+    kv = torch.zeros((2, 8, 1, 32), device=cuda)
+    with pytest.raises(ValueError):
+        decode_attention(q, kv, kv, pos, ok)
+    q = torch.zeros((2, 1, 2, 32), device=cuda)
+    kv = torch.zeros((2, 8, 2, 32), device=cuda)
+    with pytest.raises(ValueError):                 # int64 positions
+        decode_attention(q, kv, kv, pos.long(), ok)

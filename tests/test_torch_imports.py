@@ -57,6 +57,7 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
                                   FeatureStoreConfig, InjectionConfig,
                                   PipelineConfig, RecommenderPlatform)
     from repro_torch.models.model import init_params
+    from repro_torch.serving import ServingConfig, ServingEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("itfi-ranker")
@@ -72,3 +73,30 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         RecommenderPlatform(pcfg, cfg, params, inj, pop)
     RecommenderPlatform(pcfg, cfg, params, inj, pop, device="cpu")
+    scfg = ServingConfig(max_batch=2, prefill_len=8, inject_len=4,
+                         cache_capacity=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg, params, scfg)
+    ServingEngine(cfg, params, scfg, device="cpu")
+
+
+def test_serve_launcher_runs_on_cpu_without_jax():
+    """``python -m repro_torch.launch.serve`` runs the three-phase token
+    path on the CPU with ``jax`` made unimportable."""
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['msgpack'] = None\n"
+        "sys.argv = ['serve', '--arch', 'itfi-ranker', '--reduced',\n"
+        "            '--device', 'cpu', '--batch', '2', '--history', '16',\n"
+        "            '--fresh', '4', '--decode-steps', '2']\n"
+        "runpy.run_module('repro_torch.launch.serve', run_name='__main__')\n"
+        "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    for phase in ("prefill(batch hist)", "inject(fresh events)",
+                  "finalize(ring cache)", "decode: 2 steps"):
+        assert phase in out.stdout, out.stdout
