@@ -23,7 +23,18 @@
    panes of 256 users), counting kernel launches, then compares its kernel
    path with its plain path at fp32, teacher-forced over every decode
    step, and times the phases, the kernels at the path's own inputs and
-   one profiled pane.
+   one profiled pane;
+8. holds ``ssd_scan`` against its plain version in bf16 and fp32 at the
+   prefill and inject shapes of the registered ``mamba2-780m``, with
+   padded rows and a random initial state, and checks that bad inputs
+   raise;
+9. drives the Mamba2 token path, the same three phases on ``mamba2-780m``
+   at full width (48 SSM layers, bf16 weights from a seed) in 4 panes of
+   64 users from the same feature plane, counting ``ssd_scan`` launches
+   (48 in prefill and 48 in inject a pane), then times the kernel at the
+   path's own inputs and one profiled pane, and compares the kernel path
+   with the plain path at fp32 on a pane of 16 rows (prefill, inject and
+   every teacher-forced decode step's logits within 1e-4, equal slates).
 
 It needs a CUDA device: without one it exits non-zero and prints no result.
 The line before the last is the card's name and power limit; the last line
@@ -31,6 +42,7 @@ is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -52,6 +64,9 @@ FEATURE_LEN, BUFFER_LEN = 256, 64
 SERVE_BATCH, N_BATCHES = 256, 8
 PANE_PREFILL, PANE_INJECT, PANE_CAPACITY = 256, 64, 384  # token path
 N_PANES, SLATE_LEN = 4, 10
+# the Mamba2 path's panes: 64 rows, as each row's f32 SSM state is 48 x 48
+# x 64 x 128 x 4 B = 75.5 MB; the fp32 comparison on a smaller pane
+MAMBA_BATCH, MAMBA_FP32_ROWS = 64, 16
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int32": 67e12}
 TOL = {"bfloat16": 3e-2, "float32": 2e-5}    # as tests/test_kernels.py
@@ -562,10 +577,13 @@ def record_calls(module, name):
     real = getattr(module, name)
     calls = []
 
+    def clone(a):
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
     def wrapper(*args, **kwargs):
         if not calls:
-            calls.append(([a.clone() if isinstance(a, torch.Tensor) else a
-                           for a in args], dict(kwargs)))
+            calls.append(([clone(a) for a in args],
+                          {k: clone(v) for k, v in kwargs.items()}))
         return real(*args, **kwargs)
     return mock.patch.object(module, name, wrapper), calls
 
@@ -638,7 +656,14 @@ def run_token_path(dev, gpu, plat, params, now, report):
     time_decode_attention(da_calls[0][0], report, gpu)
     time_flash_extend(fa_calls[0][0], fa_calls[0][1], gpu)
     profile_pane(eng, inputs[1], gpu)
-    compare_token_paths_fp32(dev, cfg, inputs[1])
+    from repro_torch.core import injection as injection_mod
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.history_merge.ref import history_merge_ref
+    compare_token_paths_fp32(dev, cfg, inputs[1], [
+        (attention_mod, "flash_attention", attention_ref),
+        (attention_mod, "decode_attention", decode_attention_ref),
+        (injection_mod, "history_merge", history_merge_ref)])
     return launches
 
 
@@ -718,7 +743,7 @@ def time_flash_extend(args, kwargs, gpu):
           f"{bound_ms:.4f} ms ({bound_by}) [{gpu}]")
 
 
-def profile_pane(eng, inputs, gpu):
+def profile_pane(eng, inputs, gpu, label="token"):
     """One pane under the profiler: device-busy time against the host
     clock, and the kernels that take the time."""
     import torch
@@ -728,7 +753,7 @@ def profile_pane(eng, inputs, gpu):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / 3 * 1e3
     busy_ms, per_kernel = device_ms(lambda: serve_pane(eng, *inputs), 3, 1)
-    print(f"time token pane: {wall_ms:.2f} ms wall (host clock), "
+    print(f"time {label} pane: {wall_ms:.2f} ms wall (host clock), "
           f"{busy_ms:.3f} ms of kernels on the device, idle share "
           f"{1 - busy_ms / wall_ms:.3f} [{gpu}]")
     for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]:
@@ -743,12 +768,12 @@ def profile_pane(eng, inputs, gpu):
         "decode_slate": lambda: eng.decode_slate(inj, inj["first_logits"],
                                                  SLATE_LEN)}
     busy = {name: device_ms(fn, 3, 1)[0] for name, fn in phases.items()}
-    print("time token pane device busy by phase: " + ", ".join(
+    print(f"time {label} pane device busy by phase: " + ", ".join(
         f"{name} {ms:.3f} ms" for name, ms in busy.items()) + f" [{gpu}]")
-    host_ops(phases["decode_slate"], gpu)
+    host_ops(phases["decode_slate"], gpu, label)
 
 
-def host_ops(fn, gpu, top=8):
+def host_ops(fn, gpu, label="token", top=8):
     """The host's side of ``fn()``: the operators that take the most CPU
     time (self time, profiler), and how many times each is called."""
     import torch
@@ -761,45 +786,48 @@ def host_ops(fn, gpu, top=8):
     evts = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
     total = sum(e.self_cpu_time_total for e in evts) / 1e3
     calls = sum(e.count for e in evts if e.key.startswith("aten::"))
-    print(f"time decode_slate host: {total:.2f} ms of operator CPU time, "
-          f"{calls} aten operator calls, nested ones included [{gpu}]")
+    print(f"time {label} decode_slate host: {total:.2f} ms of operator CPU "
+          f"time, {calls} aten operator calls, nested ones included [{gpu}]")
     for e in sorted(evts, key=lambda e: -e.self_cpu_time_total)[:top]:
         print(f"  host {e.self_cpu_time_total / 1e3:8.3f} ms  "
               f"{e.count:5d} calls  {e.key[:60]}")
 
 
-def compare_token_paths_fp32(dev, cfg, inputs):
-    """The token path's kernel path against its plain path at fp32 on the
-    card: first logits within 1e-4; then, teacher-forced on the plain
-    path's picks, every decode step's logits within 1e-4; slates equal on
-    every row where no pick's top-2 gap is within 1e-4."""
+def compare_token_paths_fp32(dev, cfg, inputs, plain, rows=SERVE_BATCH,
+                             gen_device="cpu", strict=False):
+    """A token path's kernel path against its plain path (``plain``: the
+    (module, name, plain version) patches) at fp32 on the card: prefill's
+    last-position logits, inject's logits at the real suffix positions
+    and the first logits within 1e-4; then, teacher-forced on the plain
+    path's picks, every decode step's logits within 1e-4. Slates must be
+    equal on every row where no pick's top-2 gap is within 1e-4, and on
+    every row with ``strict``."""
     import torch
-    from repro_torch.core import injection as injection_mod
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.history_merge.ref import history_merge_ref
-    from repro_torch.models import attention as attention_mod
     from repro_torch.models.model import init_params
     from repro_torch.serving import ServingConfig, ServingEngine
     from repro_torch.serving.engine import NEG_INF
 
-    params = init_params(cfg, torch.Generator().manual_seed(SEED),
-                         torch.float32, dev)
+    params = init_params(cfg, torch.Generator(device=gen_device).manual_seed(
+        SEED), torch.float32, dev)
     eng = ServingEngine(cfg, params, ServingConfig(
-        max_batch=SERVE_BATCH, prefill_len=PANE_PREFILL,
-        inject_len=PANE_INJECT, cache_capacity=PANE_CAPACITY), device=dev)
-    hist, sfx = inputs
+        max_batch=rows, prefill_len=PANE_PREFILL, inject_len=PANE_INJECT,
+        cache_capacity=PANE_CAPACITY), device=dev)
+    (htoks, hvalid), (stoks, svalid) = inputs
+    hist = (htoks[:rows], hvalid[:rows])
+    sfx = (stoks[:rows], svalid[:rows])
+    live = torch.from_numpy(svalid[:rows]).to(dev)
 
     def first_state():
         state = eng.prefill(*hist)
-        return eng.inject(state, *sfx, fallback_logits=state["logits"][:, -1])
+        inj = eng.inject(state, *sfx, fallback_logits=state["logits"][:, -1])
+        return state["logits"][:, -1], inj
 
     def steps(state, picks=None):
         """Greedy picks (or the given ones) and each step's logits."""
         dec = eng.finalize(state)
         logits = state["first_logits"]
         mask = torch.zeros_like(logits, dtype=torch.bool)
-        rows = torch.arange(logits.shape[0], device=dev)
+        rows_ = torch.arange(logits.shape[0], device=dev)
         out_picks, out_logits, gaps = [], [logits], []
         for i in range(SLATE_LEN):
             masked = torch.where(mask, NEG_INF, logits)
@@ -808,43 +836,330 @@ def compare_token_paths_fp32(dev, cfg, inputs):
             tok = masked.argmax(-1).to(torch.int32) if picks is None \
                 else picks[i]
             out_picks.append(tok)
-            mask[rows, tok.long()] = True
+            mask[rows_, tok.long()] = True
             if i < SLATE_LEN - 1:
                 logits, dec = eng.decode(dec, tok[:, None])
                 out_logits.append(logits)
         return out_picks, out_logits, torch.stack(gaps, 1)
 
-    with mock.patch.object(attention_mod, "flash_attention", attention_ref), \
-            mock.patch.object(attention_mod, "decode_attention",
-                              decode_attention_ref), \
-            mock.patch.object(injection_mod, "history_merge",
-                              history_merge_ref):
-        p_state = first_state()
+    with contextlib.ExitStack() as stack:
+        for module, name, fn in plain:
+            stack.enter_context(mock.patch.object(module, name, fn))
+        p_pre, p_state = first_state()
         p_slate = eng.decode_slate(p_state, p_state["first_logits"],
                                    SLATE_LEN)
         p_picks, p_logits, gaps = steps(p_state)
     if not np.array_equal(torch.stack(p_picks, 1).cpu().numpy(), p_slate):
         raise SystemExit("the plain path's step loop and decode_slate "
                          "disagree")
-    k_state = first_state()
+    k_pre, k_state = first_state()
     k_slate = eng.decode_slate(k_state, k_state["first_logits"], SLATE_LEN)
     _, k_logits, _ = steps(k_state, picks=p_picks)
-    errs = []
-    for i, (kl, pl) in enumerate(zip(k_logits, p_logits)):
-        if not torch.isfinite(kl[:, :cfg.vocab_size]).all():
-            raise SystemExit(f"token path: non-finite logits at step {i}")
-        errs.append(float((kl - pl).abs().max()))
+    pairs = [("prefill", k_pre, p_pre),
+             ("inject", k_state["logits"][live], p_state["logits"][live])]
+    pairs += [(f"step {i}", kl, pl)
+              for i, (kl, pl) in enumerate(zip(k_logits, p_logits))]
+    errs = {}
+    for name, kl, pl in pairs:
+        if not torch.isfinite(kl[..., :cfg.vocab_size]).all():
+            raise SystemExit(f"{cfg.name} token path: non-finite logits "
+                             f"({name})")
+        errs[name] = float((kl - pl).abs().max())
         torch.testing.assert_close(kl, pl, atol=E2E_TOL, rtol=E2E_TOL)
     separated = (gaps > E2E_TOL).all(1).cpu().numpy()
     flipped = (k_slate != p_slate).any(1)
-    print(f"fp32 token path, kernels vs plain versions, {SERVE_BATCH} rows: "
-          f"first logits max abs err {errs[0]:.3g}, teacher-forced decode "
-          f"steps max abs err {max(errs[1:]):.3g} (tolerance {E2E_TOL}); "
-          f"{int(flipped.sum())} slates differ, {int(separated.sum())} rows "
-          f"with every top-2 gap > {E2E_TOL}")
+    steps_err = max(v for k, v in errs.items() if k.startswith("step "))
+    print(f"fp32 {cfg.name} token path, kernels vs plain versions, {rows} "
+          f"rows: prefill last logits max abs err {errs['prefill']:.3g}, "
+          f"inject logits {errs['inject']:.3g}, first logits "
+          f"{errs['step 0']:.3g}, teacher-forced decode steps "
+          f"{steps_err:.3g} (tolerance {E2E_TOL}); {int(flipped.sum())} "
+          f"slates differ, {int(separated.sum())} rows with every top-2 gap "
+          f"> {E2E_TOL}")
+    if strict and flipped.any():
+        raise SystemExit(f"{cfg.name} token path: a slate differs between "
+                         "the kernel and the plain path")
     if (flipped & separated).any():
         raise SystemExit("a token-path slate differs on a row whose picks "
                          "are separated by more than the tolerance")
+
+
+# ----------------------------------------------------------------------
+# ssd_scan and the Mamba2 token path
+# ----------------------------------------------------------------------
+
+def ssd_inputs(dev, dtype, b, s, nh, hp, ds, seed=SEED):
+    """SSD inputs as mamba2's layers see them: row 0 left-padded, the last
+    row all padding (dt = 0, identity steps), a random f32 state."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn((b, s, nh, hp), generator=g) * 0.5).to(dev, dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, nh), generator=g) - 2.0)
+    dt[0, : s // 3] = 0.0
+    dt[-1] = 0.0
+    A = -torch.exp(torch.log(torch.arange(1, nh + 1, dtype=torch.float32)))
+    B, C = ((torch.randn((b, s, ds), generator=g) * 0.3).to(dev, dtype)
+            for _ in range(2))
+    D = torch.ones((nh,))
+    h0 = torch.randn((b, nh, hp, ds), generator=g)
+    return [x, dt.to(dev), A.to(dev), B, C, D.to(dev)], h0.to(dev)
+
+
+def ssd_work(args, chunk, init_state):
+    """Bytes moved and operations needed for these inputs: x, dt, A, B, C,
+    D and the initial state read once, y and the final state written once;
+    the multiply-adds the live (dt != 0) positions need: the causal pairs
+    of each chunk (C.B^T once a row, G X per head), C.state and the state
+    update per live position and head."""
+    x, dt, A, B, C, D = args
+    b, s, nh, hp = x.shape
+    ds = B.shape[-1]
+    item = x.element_size()
+    n_bytes = (2 * x.numel() + B.numel() + C.numel()) * item \
+        + 4 * (dt.numel() + 2 * nh + b * nh * hp * ds
+               * (2 if init_state is not None else 1))
+    live = (dt != 0).reshape(b, s // chunk, chunk, nh).double()
+    per_head = live.sum(2)                            # (b, nc, nh)
+    per_row = live.amax(3).sum(2)                     # (b, nc)
+    pairs_h = float((per_head * (per_head + 1) / 2).sum())
+    pairs_r = float((per_row * (per_row + 1) / 2).sum())
+    n_ops = 2 * (hp * pairs_h + ds * pairs_r
+                 + 2 * hp * ds * float(live.sum()))
+    return n_bytes, n_ops
+
+
+def ssd_plain(x, dt, A, B, C, D, *, chunk=256, init_state=None):
+    """``ops.ssd_scan``'s contract on the plain version, for any device."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    return ssd_chunked(x, dt, A, B, C, D, chunk=min(chunk, x.shape[1]),
+                       init_state=init_state)
+
+
+def ssd_truth(x, dt, A, B, C, D, h0=None):
+    """The recurrence token by token in float64, the ground truth that the
+    fp32 tolerance is set from."""
+    import torch
+    xd, dtd, Bd, Cd = (t.double() for t in (x, dt, B, C))
+    A, D = A.double(), D.double()
+    b, s, nh, hp = x.shape
+    h = (torch.zeros((b, nh, hp, B.shape[-1]), dtype=torch.float64,
+                     device=x.device) if h0 is None else h0.double())
+    ys = []
+    for t in range(s):
+        a = torch.exp(dtd[:, t] * A)
+        h = a[:, :, None, None] * h + torch.einsum(
+            "bh,bhp,bs->bhps", dtd[:, t], xd[:, t], Bd[:, t])
+        ys.append(torch.einsum("bs,bhps->bhp", Cd[:, t], h)
+                  + D[None, :, None] * xd[:, t])
+    return torch.stack(ys, 1), h
+
+
+def check_ssd_scan(dev, report):
+    """The kernel against its plain version at mamba2-780m's prefill and
+    inject shapes and a smaller head/state/chunk set, bf16 and fp32, with
+    padded rows; a row that is all padding keeps its state bit for bit;
+    bad inputs raise.
+
+    Tolerances: bf16 3e-2 on y (y is rounded to bf16 once); fp32 2e-5 on
+    y and 1e-4 on the final state, each widened by twice the plain
+    version's own error against the float64 recurrence. With mamba2's
+    decays (A down to -48) the in-chunk cumulative sums of dt * A reach
+    ~1e3, where an f32 ulp is ~1e-4, so exp(cum_i - cum_j) carries that
+    relative error in any chunked scan; the check asks the kernel to be
+    as accurate as its plain version, not to repeat its rounding."""
+    import torch
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    shapes = [("prefill", (MAMBA_BATCH, PANE_PREFILL, 48, 64, 128), 256,
+                   False),
+                  ("inject", (MAMBA_BATCH, PANE_INJECT, 48, 64, 128), 256,
+                   True),
+                  ("small", (8, 96, 8, 32, 64), 32, True)]
+    worst = 0.0
+    for name, shape, chunk, init in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            kind = str(dtype).split(".")[1]
+            args, h0 = ssd_inputs(dev, dtype, *shape)
+            h0 = h0 if init else None
+            y, h = ssd_scan(*args, chunk=chunk, init_state=h0)
+            yw, hw = ssd_plain(*args, chunk=chunk, init_state=h0)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(y.float()).all() and
+                    torch.isfinite(h).all()):
+                raise SystemExit(f"ssd_scan {name} {kind}: non-finite output")
+            err = float((y.float() - yw.float()).abs().max())
+            herr = float((h - hw).abs().max())
+            ytol, htol, truth = TOL[kind], 1e-4, ""
+            if dtype == torch.float32:
+                yt, ht = ssd_truth(*args, h0)
+                e = [float((v.double() - t).abs().max())
+                     for v, t in ((y, yt), (yw, yt), (h, ht), (hw, ht))]
+                ytol, htol = ytol + 2 * e[1], htol + 2 * e[3]
+                truth = (f"; against the float64 recurrence: kernel y "
+                         f"{e[0]:.3g}, plain y {e[1]:.3g}, kernel state "
+                         f"{e[2]:.3g}, plain state {e[3]:.3g}")
+                del yt, ht
+            torch.testing.assert_close(y.float(), yw.float(), atol=ytol,
+                                       rtol=ytol)
+            torch.testing.assert_close(h, hw, atol=htol, rtol=htol)
+            kept = h0[-1] if init else torch.zeros_like(h[-1])
+            if not torch.equal(h[-1], kept):
+                raise SystemExit(f"ssd_scan {name} {kind}: an all-padding "
+                                 "row changed its state")
+            if name == "prefill" and dtype == torch.bfloat16:
+                worst = err
+            print(f"ssd_scan {kind} {name} (b, s, nh, hp, ds)={shape} chunk "
+                  f"{min(chunk, shape[1])}{' from a random state' if init else ''}"
+                  f": y max abs err {err:.3g} (tolerance {ytol:.3g}), final "
+                  f"state {herr:.3g} (tolerance {htol:.3g}) vs the plain "
+                  f"version{truth}; the all-padding row keeps its state")
+    args, h0 = ssd_inputs(dev, torch.float32, 2, 64, 4, 32, 32)
+    bad = {"dt in bf16": dict(dt=args[1].bfloat16()),
+           "B not in x's dtype": dict(B=args[3].bfloat16()),
+           "chunk 48 of 64": dict(chunk=48),
+           "head_dim 16": dict(x=args[0][..., :16].contiguous()),
+           "a state on the CPU": dict(init_state=h0.cpu())}
+    for what, kw in bad.items():
+        call = dict(zip(("x", "dt", "A", "B", "C", "D"), args), chunk=32)
+        call.update(kw)
+        try:
+            ssd_scan(**call)
+        except ValueError:
+            continue
+        raise SystemExit(f"ssd_scan accepted bad input: {what}")
+    print(f"ssd_scan rejects bad inputs: {', '.join(bad)}")
+    report["ssd_scan"] = dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:77",
+        max_abs_err=worst, library_ms=None)
+
+
+def time_ssd_scan(args, kwargs, label, gpu):
+    """The kernel and its plain version at one of the Mamba2 path's own
+    ssd_scan calls; returns (ms, plain_ms, bound_ms, bound_by)."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    x = args[0]
+    kind = str(x.dtype).split(".")[1]
+    call_ms = time_ms(lambda: ssd_scan(*args, **kwargs), 10, 2)
+    ms, _ = device_ms(lambda: ssd_scan(*args, **kwargs), 10, 2)
+    plain_ms, _ = device_ms(lambda: ssd_plain(*args, **kwargs), 3, 1)
+    chunk = min(kwargs.get("chunk", 256), x.shape[1])
+    n_bytes, n_ops = ssd_work(args, chunk, kwargs.get("init_state"))
+    bound_ms, bound_by = bound(n_bytes, n_ops, kind)
+    live = float((args[1] != 0).float().mean())
+    print(f"time ssd_scan {kind} at the {label} shape (b, s, nh, hp, ds)="
+          f"{tuple(x.shape) + (args[3].shape[-1],)}, chunk {chunk}, "
+          f"{live:.3f} of positions live: kernel {ms:.4f} ms on the device "
+          f"({call_ms:.4f} ms per wrapper call, CUDA events), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
+          f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} GFLOP live) [{gpu}]")
+    return ms, plain_ms, bound_ms, bound_by
+
+
+def run_mamba2_path(dev, gpu, plat, now, report):
+    """The registered mamba2-780m at full width (48 SSM layers, bf16
+    weights from a seeded generator on the card) through ServingEngine
+    prefill -> inject -> decode_slate, panes of MAMBA_BATCH users from the
+    feature plane; then the kernel's times at the path's own inputs, one
+    profiled pane and the fp32 comparison on a smaller pane."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    cfg = get_config("mamba2-780m")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         torch.bfloat16, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    scfg = ServingConfig(max_batch=MAMBA_BATCH, prefill_len=PANE_PREFILL,
+                         inject_len=PANE_INJECT, cache_capacity=PANE_CAPACITY)
+    eng = ServingEngine(cfg, params, scfg, device=dev)
+    print(f"mamba2 path: {cfg.name}, {cfg.n_layers} SSM layers, d "
+          f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.n_ssm_heads} SSD heads "
+          f"of {cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, chunk "
+          f"{cfg.ssm.chunk_size}, vocab {cfg.vocab_size}; {n_params / 1e9:.3f}"
+          f" B bf16 params made on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(SEED + 2)
+    panes = [rng.choice(N_USERS, MAMBA_BATCH, replace=False)
+             for _ in range(N_PANES + 1)]
+    inputs = [pane_inputs(eng, plat.injector, u, now) for u in panes]
+    n_fresh = np.mean([s[1].sum(1).mean() for _, s in inputs])
+    n_hist = np.mean([h[1].sum(1).mean() for h, _ in inputs])
+    # warm-up pane, recording ssd_scan's inputs at the path's two shapes
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec_pre, pre_calls = record_calls(ssm_mod, "ssd_scan")
+    rec_inj, inj_calls = record_calls(ssm_mod, "ssd_scan")
+    with rec_pre:
+        state = eng.prefill(*inputs[0][0])
+    with rec_inj:
+        state = eng.inject(state, *inputs[0][1],
+                           fallback_logits=state["logits"][:, -1])
+    eng.decode_slate(state, state["first_logits"], SLATE_LEN)
+    del state
+    torch.cuda.synchronize()
+
+    ssd_scan.launches = 0
+    times = {}
+    t0 = time.perf_counter()
+    slates = [serve_pane(eng, *inp, times=times)[1] for inp in inputs[1:]]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"ssd_scan": ssd_scan.launches}
+    per_pane = ssd_scan.launches / N_PANES
+    print(f"mamba2 path: {N_PANES} panes x {MAMBA_BATCH} users through "
+          f"ServingEngine prefill -> inject -> decode_slate({SLATE_LEN}) "
+          f"(mean {n_hist:.1f} history and {n_fresh:.2f} fresh tokens a "
+          f"row); launches {launches}, {per_pane:g} a pane (expected "
+          f"{2 * cfg.n_layers}: {cfg.n_layers} in prefill, {cfg.n_layers} in "
+          f"inject)")
+    if per_pane != 2 * cfg.n_layers:
+        raise SystemExit(f"mamba2 path: ssd_scan launched {per_pane:g} times "
+                         f"a pane, not {2 * cfg.n_layers}")
+    for s in slates:
+        if s.shape != (MAMBA_BATCH, SLATE_LEN) or s.min() < 0 \
+                or s.max() >= cfg.vocab_size:
+            raise SystemExit(f"mamba2 path: bad slate, shape {s.shape}, "
+                             f"range [{s.min()}, {s.max()}]")
+        if any(len(set(r.tolist())) != SLATE_LEN for r in s):
+            raise SystemExit("mamba2 path: a slate repeats a token")
+    print(f"mamba2 path: every slate holds {SLATE_LEN} distinct token ids "
+          f"below {cfg.vocab_size}")
+    phases = {k: float(np.mean(v)) for k, v in times.items()}
+    print(f"time mamba2 path bf16: {N_PANES * MAMBA_BATCH / elapsed:.1f} "
+          f"requests/s, {elapsed / N_PANES * 1e3:.2f} ms per pane of "
+          f"{MAMBA_BATCH} (host clock); per pane prefill "
+          f"{phases['prefill']:.3f} ms, inject {phases['inject']:.3f} ms, "
+          f"decode_slate {phases['decode_slate']:.3f} ms (host clock, "
+          f"synchronised); peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB [{gpu}]")
+    ms, plain_ms, bound_ms, bound_by = time_ssd_scan(
+        *pre_calls[0], "prefill", gpu)
+    time_ssd_scan(*inj_calls[0], "inject", gpu)
+    report["ssd_scan"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by)
+    del pre_calls, inj_calls
+    profile_pane(eng, inputs[1], gpu, label="mamba2")
+    del eng, params
+    torch.cuda.empty_cache()
+    compare_token_paths_fp32(dev, cfg, inputs[1],
+                             [(ssm_mod, "ssd_scan", ssd_plain)],
+                             rows=MAMBA_FP32_ROWS, gen_device=dev,
+                             strict=True)
+    return launches
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
 
 
 def main() -> int:
@@ -872,10 +1187,12 @@ def main() -> int:
     launches, plat, params, now = run_main_path(dev, gpu)
     check_decode_attention(dev, report)
     token_launches = run_token_path(dev, gpu, plat, params, now, report)
+    check_ssd_scan(dev, report)
+    ssm_launches = run_mamba2_path(dev, gpu, plat, now, report)
     missing = set(names) ^ set(report)
     if missing:
         raise SystemExit(f"kernels without a check: {sorted(missing)}")
-    for name, n in token_launches.items():
+    for name, n in (*token_launches.items(), *ssm_launches.items()):
         launches[name] = launches.get(name, 0) + n
     kernels = [dict(report[n], launches=launches[n]) for n in names]
     print(json.dumps({"kernels": kernels}))

@@ -1,3 +1,4 @@
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, get_config, list_configs, pad_vocab, reduced, register,
+    ModelConfig, SSMConfig, get_config, list_configs, pad_vocab, reduced,
+    register,
 )

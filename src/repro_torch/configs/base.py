@@ -1,9 +1,9 @@
 """Unified model/config system (copy of the JAX package's ``configs/base.py``).
 
 Every architecture is expressed as a ``ModelConfig``, a frozen dataclass.
-The port registers only the paper's own ranker so far (``archs.py``); the
-MoE/SSM sub-configs and the parameter counts come with the slices that
-port those architectures.
+The port registers the paper's own ranker and ``mamba2-780m`` so far
+(``archs.py``); the MoE sub-config and the parameter counts come with the
+slices that port those architectures.
 
 Layer-type schedule
 -------------------
@@ -25,6 +25,21 @@ def pad_vocab(v: int, multiple: int = VOCAB_PAD_MULTIPLE) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    expand: int = 2
+    head_dim: int = 64
+    conv_width: int = 4
+    chunk_size: int = 256
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+    # which layers are SSM: Jamba uses attn at (i % period == attn_offset),
+    # SSM elsewhere; pure mamba2 has attn_period=0 (never attention).
+    attn_period: int = 0
+    attn_offset: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str  # dense | moe | ssm | hybrid | vlm | audio
@@ -40,10 +55,10 @@ class ModelConfig:
     sliding_window: int = 0  # 0 = full attention
     qkv_bias: bool = False  # qwen-style attention bias
     tie_embeddings: bool = False
-    # the JAX package's MoEConfig / SSMConfig; None for the dense stacks
-    # the port runs so far
+    # the JAX package's MoEConfig (MoE is not ported: the model raises on
+    # it); None for the stacks the port runs
     moe: Optional[Any] = None
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
     # modality frontend stubs (vlm/audio): number of prefix embedding
     # positions supplied externally as precomputed patch/frame embeddings.
     frontend: str = "none"  # none | vision | audio
@@ -60,6 +75,16 @@ class ModelConfig:
     @property
     def vocab_padded(self) -> int:
         return pad_vocab(self.vocab_size)
+
+    @property
+    def d_inner(self) -> int:
+        s = self.ssm or SSMConfig()
+        return s.expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        s = self.ssm or SSMConfig()
+        return self.d_inner // s.head_dim
 
     # ------------------------------------------------------------------
     def layer_kinds(self) -> Tuple[str, ...]:

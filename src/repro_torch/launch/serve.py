@@ -2,6 +2,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch itfi-ranker \
       [--reduced] [--device cuda|cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m --reduced
 
 Runs the three-phase request path on seeded random histories:
   1. prefill(batch history)   — the daily-job-cacheable state
@@ -71,9 +72,14 @@ def main(argv=None) -> None:
               f"warm={time.perf_counter() - t1:7.3f}s")
         return out
 
+    if cfg.ssm is None:
+        mixer = f"{cfg.n_heads} heads of {cfg.head_dim_}"
+    else:
+        mixer = (f"{cfg.n_ssm_heads} SSD heads of {cfg.ssm.head_dim}, "
+                 f"d_state {cfg.ssm.d_state}")
     print(f"arch {cfg.name} on {device}: {cfg.n_layers} layers, d "
-          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim_}, vocab "
-          f"{cfg.vocab_size}, float32 weights from seed {args.seed}")
+          f"{cfg.d_model}, {mixer}, vocab {cfg.vocab_size}, float32 weights "
+          f"from seed {args.seed}")
     toks, valid = eng.pad_tokens(hists, args.history)
     state = timed("prefill(batch hist)", eng.prefill, toks, valid)
     stoks, svalid = eng.pad_tokens(fresh, args.fresh, align="left")

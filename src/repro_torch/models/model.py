@@ -1,16 +1,19 @@
-"""Decoder-only ranker over a ``ModelConfig`` (dense stacks).
+"""Decoder-only ranker over a ``ModelConfig``: dense attention stacks,
+pure Mamba2 stacks and stacks that mix the two kinds of layer (MoE MLPs and
+modality frontends are not ported and raise).
 
 Parameters keep the JAX package's tree (``init_params`` there): per-layer
 params stacked as ``blocks["pos{p}"]`` with a leading repeat dim R =
 n_layers / P, where P is the period of the layer-kind pattern. The JAX
 package scans over the R repeats; here the stack is a loop over them.
-Caches keep its tree too: ``{"pos{p}": {"k", "v"[, "valid"]}}``, each leaf
-with the leading R dim.
+Caches keep its tree too, each leaf with the leading R dim: attention
+positions hold ``{"k", "v"[, "valid"]}``, SSM positions ``{"conv_x",
+"conv_B", "conv_C", "state"}`` (conv tails and the f32 recurrent state).
 
 Entry points: ``forward`` (full-sequence logits), ``prefill`` (logits and
-the per-layer K/V), ``extend`` (the injected suffix against a prefill
-cache), ``decode_step`` (one token against a ring cache), and the cache
-builders ``init_cache`` and ``cache_from_prefill``.
+the per-layer caches), ``extend`` (the injected suffix against a prefill
+cache), ``decode_step`` (one token against the decode caches), and the
+cache builders ``init_cache`` and ``cache_from_prefill``.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import normal_init
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.norms import init_rmsnorm, rmsnorm
@@ -48,23 +52,28 @@ def pattern_sig(cfg: ModelConfig):
     return sig[:p]
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if any(sig != ("attn", "dense") for sig in pattern_sig(cfg)):
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.moe is not None or cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attention stacks only so far")
+            f"{cfg.name}: the port runs attention and SSM stacks with dense "
+            "or no MLPs; MoE and modality frontends are not ported")
 
 
 # ----------------------------------------------------------------------
 # Init
 # ----------------------------------------------------------------------
 
-def _init_layer(gen, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
-    return {
-        "norm1": init_rmsnorm(cfg.d_model, dtype, device),
-        "attn": attn_mod.init_attention(gen, cfg, dtype, device),
-        "norm2": init_rmsnorm(cfg.d_model, dtype, device),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device),
-    }
+def _init_layer(gen, cfg: ModelConfig, kind: str, mlp_kind: str, dtype,
+                device) -> Dict[str, Any]:
+    p: Dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, dtype, device)}
+    if kind == "attn":
+        p["attn"] = attn_mod.init_attention(gen, cfg, dtype, device)
+    else:
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg, dtype, device)
+    if mlp_kind == "dense":
+        p["norm2"] = init_rmsnorm(cfg.d_model, dtype, device)
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    return p
 
 
 def _stack(trees):
@@ -76,12 +85,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
     """Random params with the JAX ``init_params``' paths, shapes and scales.
     The random bits are torch's, not ``jax.random``'s."""
-    _check_dense(cfg)
+    _check_supported(cfg)
     pat = pattern_sig(cfg)
     R = cfg.n_layers // len(pat)
-    blocks = {f"pos{p}": _stack([_init_layer(generator, cfg, dtype, device)
+    blocks = {f"pos{p}": _stack([_init_layer(generator, cfg, kind, mlp_kind,
+                                             dtype, device)
                                  for _ in range(R)])
-              for p in range(len(pat))}
+              for p, (kind, mlp_kind) in enumerate(pat)}
     params = {
         "embed": {"table": normal_init(generator,
                                        (cfg.vocab_padded, cfg.d_model),
@@ -114,45 +124,56 @@ def _take(tree, r: int):
             for k, v in tree.items()}
 
 
-def _layer(lp, x, positions, valid, cfg: ModelConfig, *, mode="forward",
-           cache=None, prefix_valid=None, inplace=False):
-    """One block. Returns (x, cache_out): the layer's K/V for "prefill" and
-    "extend" (prefix + suffix), its updated ring cache for "decode", None
-    for "forward"."""
+def _layer(lp, x, positions, valid, cfg: ModelConfig, *, kind="attn",
+           mlp_kind="dense", mode="forward", cache=None, prefix_valid=None,
+           inplace=False):
+    """One block. Returns (x, cache_out): for "prefill" and "extend" the
+    layer's K/V (prefix + suffix) or its SSM tails and state, for "decode"
+    its updated cache, None for "forward"."""
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
-    if mode == "decode":
+    if kind == "attn" and mode == "decode":
         mix, cache_out = attn_mod.attention_decode(
             lp["attn"], h, positions, cache, cfg, inplace=inplace)
-    else:
-        mix, kv = attn_mod.attention_full(
+    elif kind == "attn":
+        mix, cache_out = attn_mod.attention_full(
             lp["attn"], h, positions, cfg, valid=valid,
             prefix_kv=cache if mode == "extend" else None,
             prefix_valid=prefix_valid)
-        cache_out = kv if mode in ("prefill", "extend") else None
+    elif mode == "decode":
+        mix, cache_out = ssm_mod.ssm_decode(lp["ssm"], h, cache, cfg,
+                                            inplace=inplace)
+    else:
+        mix, cache_out = ssm_mod.ssm_forward(
+            lp["ssm"], h, cfg, cache=cache if mode == "extend" else None,
+            valid=valid)
     x = x + mix
-    h = rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    return x + mlp(lp["mlp"], h), cache_out
+    if mlp_kind == "dense":
+        x = x + mlp(lp["mlp"], rmsnorm(lp["norm2"], x, cfg.norm_eps))
+    return x, (None if mode == "forward" else cache_out)
 
 
 def _run_stack(params, x, cfg: ModelConfig, *, mode, positions, valid=None,
                caches=None, prefix_valid=None, inplace=False):
     """The R x P blocks in order. Returns (x, caches_out) with caches_out
     stacked over R like the JAX scan's output, or None for "forward".
-    With ``inplace`` (decode only) the ring writes go into ``caches``'
-    own tensors, which are returned."""
+    With ``inplace`` (decode only) the ring writes, conv tails and states
+    go into ``caches``' own tensors, which are returned."""
     pat = pattern_sig(cfg)
     outs = {f"pos{p}": [] for p in range(len(pat))}
     for r in range(cfg.n_layers // len(pat)):
-        for p in range(len(pat)):
+        for p, (kind, mlp_kind) in enumerate(pat):
             key = f"pos{p}"
             cache = None if caches is None else _take(caches[key], r)
             x, c_out = _layer(_take(params["blocks"][key], r), x, positions,
-                              valid, cfg, mode=mode, cache=cache,
+                              valid, cfg, kind=kind, mlp_kind=mlp_kind,
+                              mode=mode, cache=cache,
                               prefix_valid=prefix_valid, inplace=inplace)
             outs[key].append(c_out)
     if mode == "forward":
         return x, None
-    if inplace and all("valid" in caches[k] for k in outs):
+    # an attention cache without "valid" gets a new one, so no longer fits
+    if inplace and all(kind == "ssm" or "valid" in caches[f"pos{p}"]
+                       for p, (kind, _) in enumerate(pat)):
         return x, caches
     return x, {k: _stack(v) for k, v in outs.items()}
 
@@ -179,7 +200,7 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None, valid=None,
 
     tokens (B,S) int; positions (B,S) or (S,), default 0..S-1; valid (B,S)
     bool key mask (left padding)."""
-    _check_dense(cfg)
+    _check_supported(cfg)
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
@@ -193,10 +214,11 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None, valid=None,
 
 def prefill(params, cfg: ModelConfig, tokens, *, positions=None, valid=None,
             logits_last_only: bool = False):
-    """Full-sequence pass that also returns the per-layer K/V. Returns
+    """Full-sequence pass that also returns the per-layer caches. Returns
     (logits (B,S,Vp) fp32, or (B,1,Vp) with ``logits_last_only``; caches
-    {"pos{p}": {"k", "v"}} each (R,B,S,nkv,hd))."""
-    _check_dense(cfg)
+    {"pos{p}": {"k", "v"}} each (R,B,S,nkv,hd) for attention, the SSM
+    tails and state for SSM positions)."""
+    _check_supported(cfg)
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
@@ -215,7 +237,7 @@ def extend(params, cfg: ModelConfig, caches, tokens, start_pos, *,
     first suffix position; the prefix keys keep their slot indices as
     positions. Returns (logits over the suffix (B,Ss,Vp), caches covering
     prefix + suffix)."""
-    _check_dense(cfg)
+    _check_supported(cfg)
     positions = start_pos.to(torch.int32)[:, None] + torch.arange(
         tokens.shape[1], dtype=torch.int32, device=tokens.device)[None, :]
     x, caches_out = _run_stack(params, _embed(params, tokens), cfg,
@@ -232,7 +254,7 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
     tokens already in the cache (the new token's position). Returns
     (logits (B,1,Vp), updated ring caches). The caller's caches are left
     as they were unless ``inplace``."""
-    _check_dense(cfg)
+    _check_supported(cfg)
     x, caches_out = _run_stack(params, _embed(params, tokens), cfg,
                                mode="decode", positions=pos, caches=caches,
                                inplace=inplace)
@@ -252,28 +274,41 @@ def _capacity(cfg: ModelConfig, capacity: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                dtype=torch.bfloat16, device="cuda"):
-    """An empty ring decode cache, {"pos{p}": {"k", "v", "valid"}} with the
-    leading R dim."""
-    _check_dense(cfg)
+    """An empty decode cache with the leading R dim: {"pos{p}": {"k", "v",
+    "valid"}} ring caches for attention, zero tails and states for SSM."""
+    _check_supported(cfg)
     pat = pattern_sig(cfg)
     R = cfg.n_layers // len(pat)
-    one = attn_mod.init_kv_cache(cfg, batch, _capacity(cfg, capacity),
-                                 dtype, device)
-    return {f"pos{p}": {k: v[None].repeat((R,) + (1,) * v.dim())
-                        for k, v in one.items()} for p in range(len(pat))}
+    caches = {}
+    for p, (kind, _) in enumerate(pat):
+        if kind == "attn":
+            one = attn_mod.init_kv_cache(cfg, batch, _capacity(cfg, capacity),
+                                         dtype, device)
+        else:
+            one = ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
+        caches[f"pos{p}"] = {k: v[None].repeat((R,) + (1,) * v.dim())
+                             for k, v in one.items()}
+    return caches
 
 
 def cache_from_prefill(cfg: ModelConfig, caches, capacity: int, valid=None):
-    """Prefill (or extend) K/V -> ring decode cache. ``valid`` (B,S): the
-    pad mask; padded slots stay masked in the ring so decode never attends
-    them."""
-    _check_dense(cfg)
+    """Prefill (or extend) caches -> decode caches: attention K/V become
+    ring caches, SSM tails and states are copied as they are (copies, so
+    that an in-place decode leaves the prefill state intact). ``valid``
+    (B,S): the pad mask; padded slots stay masked in the ring so decode
+    never attends them."""
+    _check_supported(cfg)
     cap = _capacity(cfg, capacity)
     out = {}
-    for key, kv in caches.items():
-        per_r = [attn_mod.cache_from_prefill(_take(kv, r), cap, valid)
-                 for r in range(kv["k"].shape[0])]
-        out[key] = _stack(per_r)
+    for p, (kind, _) in enumerate(pattern_sig(cfg)):
+        key = f"pos{p}"
+        kv = caches[key]
+        if kind == "attn":
+            kv = _stack([attn_mod.cache_from_prefill(_take(kv, r), cap, valid)
+                         for r in range(kv["k"].shape[0])])
+        else:
+            kv = {name: t.clone() for name, t in kv.items()}
+        out[key] = kv
     return out
 
 
@@ -291,7 +326,7 @@ class Ranker(nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any]):
         super().__init__()
-        _check_dense(cfg)
+        _check_supported(cfg)
         self.cfg = cfg
         self.params = _as_module(params)
 

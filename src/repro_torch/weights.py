@@ -4,7 +4,9 @@
 (``jax.tree.map(np.asarray, params)``) and returns the port's tree: the
 same dict paths and the same layouts (``blocks/pos0/attn/wq`` stays
 ``(R, d, nq, hd)``), as torch tensors. bf16 leaves arrive as numpy's
-``bfloat16`` extension dtype and are carried over bit for bit.
+``bfloat16`` extension dtype and are carried over bit for bit. A cast to
+``dtype`` gives each leaf the type ``init_params(cfg, dtype=dtype)`` gives
+it: the SSM's ``A_log``, ``D`` and ``dt_bias`` stay f32 in a bf16 model.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import resolve_device
-from repro_torch.models.model import param_shapes
+from repro_torch.models.model import init_params
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
@@ -27,8 +29,8 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
                       dtype=None) -> Dict[str, Any]:
     """The port's param tree from a numpy copy of the JAX one, on ``device``,
-    cast to ``dtype`` when given. Raises if a path or shape differs from
-    ``cfg``'s."""
+    cast when ``dtype`` is given to the leaf types of a ``dtype`` model.
+    Raises if a path or shape differs from ``cfg``'s."""
     device = resolve_device(device)
 
     def convert(got, want, path):
@@ -41,9 +43,12 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
                 out[k] = convert(got[k], w, f"{path}/{k}")
                 continue
             arr = np.asarray(got[k])
-            if arr.shape != w:
-                raise ValueError(f"params{path}/{k}: shape {arr.shape} != {w}")
-            out[k] = _tensor(arr).to(device=device, dtype=dtype)
+            if arr.shape != w.shape:
+                raise ValueError(
+                    f"params{path}/{k}: shape {arr.shape} != {tuple(w.shape)}")
+            out[k] = _tensor(arr).to(device=device,
+                                     dtype=None if dtype is None else w.dtype)
         return out
 
-    return convert(tree, param_shapes(cfg), "")
+    like = init_params(cfg, torch.Generator(), dtype or torch.float32, "meta")
+    return convert(tree, like, "")

@@ -9,7 +9,10 @@ machine with the card (no JAX needed there):
 ``flash_attention`` and ``decode_attention`` must be within
 ``tests/test_kernels.py``'s tolerances: 2e-5 in fp32 (different summation
 order), 3e-2 in bf16 (the plain versions round the probabilities to bf16
-before the PV product, the kernels keep them f32).
+before the PV product, the kernels keep them f32). ``ssd_scan``'s y must be
+within the same tolerances of ``ssd_chunked`` (another summation order;
+bf16 rounds y once), its f32 final state within 1e-4, and a row that is
+all padding (dt = 0) must keep its incoming state bit for bit.
 """
 import numpy as np
 import pytest
@@ -21,6 +24,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.history_merge.ops import history_merge
 from repro_torch.kernels.history_merge.ref import history_merge_ref
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
 pytestmark = pytest.mark.gpu
 
@@ -143,3 +148,81 @@ def test_decode_attention_rejects_bad_input(cuda):
     kv = torch.zeros((2, 8, 2, 32), device=cuda)
     with pytest.raises(ValueError):                 # int64 positions
         decode_attention(q, kv, kv, pos.long(), ok)
+
+
+def _ssd_inputs(dev, dtype, b, s, nh, hp, ds, decay=1.0, seed=0):
+    """Inputs shaped like test_kernels._ssd_inputs; row 0 left-padded and
+    the last row all padding (dt = 0); a random f32 initial state."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = (torch.randn((b, s, nh, hp), generator=g) * 0.5).to(dev, dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, nh), generator=g) - 2.0)
+    dt[0, : s // 3] = 0.0
+    dt[-1] = 0.0
+    A = -torch.exp(torch.randn((nh,), generator=g) * 0.3) * decay
+    B, C = ((torch.randn((b, s, ds), generator=g) * 0.3).to(dev, dtype)
+            for _ in range(2))
+    D = torch.ones((nh,))
+    h0 = torch.randn((b, nh, hp, ds), generator=g)
+    return (x, dt.to(dev), A.to(dev), B, C, D.to(dev)), h0.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nh,hp,ds,chunk,decay,init", [
+    (4, 256, 48, 64, 128, 256, 1.0, False),  # mamba2-780m prefill
+    (4, 64, 48, 64, 128, 256, 1.0, True),    # its inject: chunk 64, a state
+    (2, 128, 8, 32, 64, 32, 1.0, False),     # test_kernels' shapes
+    (2, 128, 4, 64, 128, 64, 1.0, True),
+    (2, 64, 2, 32, 32, 16, 1.0, True),
+    (3, 96, 4, 128, 32, 48, 40.0, True),     # 1.5 tiles a chunk; overflow
+    (2, 24, 16, 32, 32, 256, 1.0, True),     # reduced mamba2: chunk 24
+    (2, 8, 16, 32, 32, 256, 1.0, True),      # its inject: chunk 8
+])
+def test_ssd_scan_kernel_vs_plain(cuda, dtype, b, s, nh, hp, ds, chunk,
+                                  decay, init):
+    args, h0 = _ssd_inputs(cuda, dtype, b, s, nh, hp, ds, decay,
+                           seed=s * hp + ds)
+    h0 = h0 if init else None
+    before = ssd_scan.launches
+    y, h = ssd_scan(*args, chunk=chunk, init_state=h0)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    yw, hw = ssd_chunked(*args, chunk=min(chunk, s), init_state=h0)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(y.float(), yw.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, hw, atol=1e-4, rtol=1e-4)
+    want_last = h0[-1] if init else torch.zeros_like(h[-1])
+    assert torch.equal(h[-1], want_last)
+
+
+def test_ssd_scan_rejects_bad_input(cuda):
+    (x, dt, A, B, C, D), h0 = _ssd_inputs(cuda, torch.float32, 2, 64, 4,
+                                          32, 32)
+    bad = [
+        dict(dt=dt.to(torch.bfloat16)),                 # dt must be f32
+        dict(B=B.to(torch.bfloat16)),                   # B in x's dtype
+        dict(x=x.transpose(2, 3).contiguous().transpose(2, 3)),  # strides
+        dict(init_state=h0[:, :, :16]),                 # state shape
+        dict(init_state=h0.cpu()),                      # another device
+        dict(A=A[:2]),
+    ]
+    for kw in bad:
+        args = dict(x=x, dt=dt, A=A, B=B, C=C, D=D)
+        init = kw.pop("init_state", None)
+        args.update(kw)
+        with pytest.raises(ValueError):
+            ssd_scan(*args.values(), chunk=32, init_state=init)
+    with pytest.raises(ValueError):                      # chunk 48 of 64
+        ssd_scan(x, dt, A, B, C, D, chunk=48)
+    with pytest.raises(ValueError):                      # head_dim 16
+        ssd_scan(x[..., :16].contiguous(), dt, A, B, C, D)
+    with pytest.raises(ValueError):                      # d_state 256
+        big = torch.zeros((2, 64, 256), device=cuda)
+        ssd_scan(x, dt, A, big, big, D)
+    xs = torch.zeros((1, 512, 4, 32), device=cuda)       # chunk 512
+    bs = torch.zeros((1, 512, 32), device=cuda)
+    with pytest.raises(ValueError):
+        ssd_scan(xs, torch.zeros((1, 512, 4), device=cuda), A, bs, bs, D,
+                 chunk=512)

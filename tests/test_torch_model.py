@@ -7,7 +7,6 @@ their f32 sums differently, which moves logits of magnitude ~1 by a few
 1e-6. The flash-attention plain version is held against the JAX Pallas
 kernel (interpret mode) at ``test_kernels.py``'s tolerances.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -16,12 +15,13 @@ import pytest
 import torch
 
 from conftest import tiny_model_config
+from torch_port import port_cfg
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.models.attention import attention_full as jax_attention_full
 from repro.models.model import forward as jax_forward
 from repro.models.model import init_params as jax_init_params
 from repro.models.model import param_shapes as jax_param_shapes
-from repro_torch.configs import ModelConfig, get_config
+from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_mask
 from repro_torch.models.attention import attention_full
@@ -33,16 +33,11 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-def _port_cfg(cfg):
-    return ModelConfig(**{f.name: getattr(cfg, f.name)
-                          for f in dataclasses.fields(ModelConfig)})
-
-
 @pytest.fixture(scope="module")
 def tiny():
     jcfg = tiny_model_config()
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
-    cfg = _port_cfg(jcfg)
+    cfg = port_cfg(jcfg)
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg,
                                device="cpu")
     return jcfg, jparams, cfg, params
@@ -64,7 +59,7 @@ def _batch(cfg, b=5, s=24, seed=0):
 def test_param_shapes_match_jax(name):
     from repro.configs.base import get_config as jax_get_config
     jcfg = tiny_model_config() if name == "tiny-test" else jax_get_config(name)
-    cfg = _port_cfg(jcfg)
+    cfg = port_cfg(jcfg)
     if name == "itfi-ranker":
         assert get_config(name) == cfg
     want = jax.tree.map(lambda x: tuple(x.shape), jax_param_shapes(jcfg))

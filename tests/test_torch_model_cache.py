@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from conftest import tiny_model_config
+from torch_port import port_cfg
 from repro.models.attention import attention_decode as jax_attention_decode
 from repro.models.attention import attention_full as jax_attention_full
 from repro.models.model import cache_from_prefill as jax_cache_from_prefill
@@ -26,7 +27,6 @@ from repro.models.model import extend as jax_extend
 from repro.models.model import init_cache as jax_init_cache
 from repro.models.model import init_params as jax_init_params
 from repro.models.model import prefill as jax_prefill
-from repro_torch.configs import ModelConfig
 from repro_torch.models.attention import attention_decode, attention_full
 from repro_torch.models.model import (Ranker, cache_from_prefill, decode_step,
                                       extend, init_cache, prefill)
@@ -37,15 +37,10 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-def _port_cfg(cfg):
-    return ModelConfig(**{f.name: getattr(cfg, f.name)
-                          for f in dataclasses.fields(ModelConfig)})
-
-
 def _models(window=0):
     jcfg = dataclasses.replace(tiny_model_config(), sliding_window=window)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
-    cfg = _port_cfg(jcfg)
+    cfg = port_cfg(jcfg)
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg,
                                device="cpu")
     return jcfg, jparams, cfg, params
