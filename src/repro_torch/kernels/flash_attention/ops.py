@@ -53,6 +53,9 @@ def flash_attention(q, k, v, qpos, kpos, kvalid, *, window: int = 0):
     _check("qpos", qpos, torch.int32, (b, sq), dev)
     _check("kpos", kpos, torch.int32, (b, sk), dev)
     _check("kvalid", kvalid, torch.bool, (b, sk), dev)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):  # 16-byte copies
+        raise ValueError("flash_attention: q, k and v must be 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
     err = _lib()(*[t.data_ptr() for t in (q, k, v, qpos, kpos, kvalid, out)],
                  b, sq, sk, nq, nkv, hd, window, hd ** -0.5,

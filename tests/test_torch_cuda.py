@@ -8,11 +8,12 @@ machine with the card (no JAX needed there):
 ``history_merge`` must be bit-equal to its plain version.
 ``flash_attention`` and ``decode_attention`` must be within
 ``tests/test_kernels.py``'s tolerances: 2e-5 in fp32 (different summation
-order), 3e-2 in bf16 (the plain versions round the probabilities to bf16
-before the PV product, the kernels keep them f32). ``ssd_scan``'s y must be
-within the same tolerances of ``ssd_chunked`` (another summation order;
-bf16 rounds y once), its f32 final state within 1e-4, and a row that is
-all padding (dt = 0) must keep its incoming state bit for bit.
+order), 3e-2 in bf16 (the plain versions round the normalised
+probabilities to bf16 before the PV product; ``flash_attention`` rounds
+its unnormalised ones, ``decode_attention`` keeps them f32). ``ssd_scan``'s
+y must be within the same tolerances of ``ssd_chunked`` (another summation
+order; bf16 rounds y once), its f32 final state within 1e-4, and a row
+that is all padding (dt = 0) must keep its incoming state bit for bit.
 """
 import numpy as np
 import pytest
@@ -94,6 +95,72 @@ def test_flash_attention_kernel_vs_plain(cuda, dtype, b, sq, sk, nq, nkv, hd,
     want = attention_ref(q, k, v, qpos, kpos, kvalid, window=window)
     tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _flash_case(case, dev, dtype):
+    """Inputs that exercise the kernel's tile skip and dead-row mean."""
+    b, sq, sk, nq, nkv, hd, window = {
+        "all rows dead": (4, 48, 80, 4, 2, 32, 0),
+        "non-monotone positions": (3, 70, 70, 4, 2, 64, 0),
+        "hd 128, K/V streamed": (2, 64, 1024, 8, 2, 128, 0),
+        "window kills interior tiles": (2, 512, 512, 4, 4, 64, 40),
+        "extend, invalid suffix tail": (256, 64, 320, 8, 8, 32, 0),
+    }[case]
+    g = torch.Generator(device="cpu").manual_seed(len(case))
+    q, k, v = (torch.randn(shape, generator=g) for shape in
+               ((b, sq, nq, hd), (b, sk, nkv, hd), (b, sk, nkv, hd)))
+    kpos = torch.arange(sk, dtype=torch.int32).repeat(b, 1)
+    qpos = kpos[:, sk - sq:].clone()
+    kvalid = torch.ones((b, sk), dtype=torch.bool)
+    if case == "all rows dead":
+        kvalid[:] = False
+    elif case == "non-monotone positions":
+        for r in range(b):                       # one permutation per row
+            perm = torch.randperm(sk, generator=g).to(torch.int32)
+            kpos[r], qpos[r] = perm, perm
+        kvalid[1, torch.randperm(sk, generator=g)[: sk // 2]] = False
+    elif case == "hd 128, K/V streamed":
+        kvalid[0, : sk - 40] = False             # left padding, dead rows
+    elif case == "extend, invalid suffix tail":
+        # a 256-slot prefix, left-padded, then a 64-token suffix whose
+        # real tokens start at each row's next position
+        hist = torch.randint(0, 257, (b,), generator=g)
+        fresh = torch.randint(0, 9, (b,), generator=g)
+        hist[0], fresh[1] = 0, 0
+        hist[2], fresh[2] = 0, 0                 # a row with no live key
+        slot = torch.arange(sk - sq)
+        kvalid[:, : sk - sq] = slot[None] >= (sk - sq - hist)[:, None]
+        kvalid[:, sk - sq:] = torch.arange(sq)[None] < fresh[:, None]
+        qpos = (sk - sq) + torch.arange(sq, dtype=torch.int32).repeat(b, 1)
+        kpos[:, sk - sq:] = qpos
+    return [t.to(dev) for t in (q.to(dtype), k.to(dtype), v.to(dtype),
+                                 qpos.contiguous(), kpos.contiguous(),
+                                 kvalid)], window
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    "all rows dead", "non-monotone positions", "hd 128, K/V streamed",
+    "window kills interior tiles", "extend, invalid suffix tail"])
+def test_flash_attention_kernel_skip_and_dead_rows(cuda, dtype, case):
+    """Cases where whole key tiles are dead or rows have no live key: the
+    kernel must still give the plain version's result, and a row with no
+    live key must get the mean of V over all keys of its KV head."""
+    args, window = _flash_case(case, cuda, dtype)
+    q, k, v, qpos, kpos, kvalid = args
+    before = flash_attention.launches
+    got = flash_attention(*args, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = attention_ref(*args, window=window)
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if case == "all rows dead":
+        mean = v.float().mean(1).repeat_interleave(q.shape[2] // k.shape[2],
+                                                    1)
+        torch.testing.assert_close(
+            got.float(), mean[:, None].expand_as(got).to(dtype).float(),
+            atol=tol, rtol=tol)
 
 
 def test_flash_attention_rejects_bad_input(cuda):

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from conftest import tiny_model_config
+from test_torch_flash_attention import kernel_schedule
 from torch_port import port_cfg
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.models.attention import attention_full as jax_attention_full
@@ -23,7 +24,7 @@ from repro.models.model import init_params as jax_init_params
 from repro.models.model import param_shapes as jax_param_shapes
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_mask
+from repro_torch.kernels.flash_attention.ref import attention_mask
 from repro_torch.models.attention import attention_full
 from repro_torch.models.model import Ranker, forward, init_params, param_shapes
 from repro_torch.weights import params_from_numpy
@@ -147,42 +148,17 @@ def test_flash_plain_matches_pallas_interpret(s, nq, nkv, hd, window, dtype):
                                np.asarray(want, np.float32), **tol)
 
 
-def _kernel_tile_loop(q, k, v, mask, bk=32):
-    """numpy emulation of ``csrc/flash_attention.cu``'s per-row loop:
-    online softmax from m = -1e30 over every key tile of ``bk`` keys, a
-    masked score set to -1e30 and keys past Sk to -inf."""
-    b, sq, nq, hd = q.shape
-    sk, g = k.shape[1], nq // k.shape[2]
-    out = np.zeros_like(q)
-    for bb in range(b):
-        for h in range(nq):
-            for i in range(sq):
-                m, l, acc = np.float32(NEG_INF), np.float32(0), np.zeros(hd,
-                                                                       np.float32)
-                for k0 in range(0, sk, bk):
-                    s = np.full(bk, -np.inf, np.float32)
-                    n = min(bk, sk - k0)
-                    dots = k[bb, k0:k0 + n, h // g] @ q[bb, i, h] * hd ** -0.5
-                    s[:n] = np.where(mask[bb, i, k0:k0 + n], dots, NEG_INF)
-                    m_new = max(m, s.max())
-                    alpha = np.exp(m - m_new)
-                    p = np.exp(s - m_new)
-                    l = l * alpha + p.sum()
-                    vt = np.zeros((bk, hd), np.float32)
-                    vt[:n] = v[bb, k0:k0 + n, h // g]
-                    acc = acc * alpha + p @ vt
-                    m = m_new
-                out[bb, i, h] = acc / l
-    return out
-
-
 @pytest.mark.parametrize("sq,sk,window", [(20, 20, 0), (16, 45, 0),
                                           (33, 33, 6)])
 def test_kernel_tile_loop_matches_plain(sq, sk, window):
-    """The kernel's algorithm gives the plain version's result, including
-    rows with no attendable key (the uniform average of V over all Sk keys,
-    which a dead-block skip would break) and Sk beyond Sq and beyond a
-    multiple of the tile."""
+    """The kernel's algorithm (``kernel_schedule``, an emulation of
+    ``csrc/flash_attention.cu``) gives the plain version's result, including
+    rows with no attendable key and Sk beyond Sq and beyond a multiple of
+    the tile. Such a row must get the uniform average of V over all Sk keys,
+    as the reference's softmax over -1e30 gives it. The kernel skips dead
+    key tiles, so it does not reach that row through the softmax: it tracks
+    whether each row has seen a live key and writes the per-head mean of V
+    for a row that has not."""
     rng = np.random.RandomState(sq + sk)
     b, nq, nkv, hd = 3, 4, 2, 16
     q = rng.normal(size=(b, sq, nq, hd)).astype(np.float32)
@@ -198,7 +174,7 @@ def test_kernel_tile_loop_matches_plain(sq, sk, window):
     want = flash_attention(tq, tk, tv, tqp, tkp, tkv, window=window).numpy()
     mask = attention_mask(tqp, tkp, tkv, window).numpy()
     assert not mask[2].any()
-    got = _kernel_tile_loop(q, k, v, mask)
+    got = kernel_schedule(q, k, v, qpos, kpos, kvalid, window)[0]
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(want[2], np.broadcast_to(
         v[2].mean(0).repeat(nq // nkv, 0), want[2].shape), atol=2e-5)
