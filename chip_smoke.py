@@ -28,13 +28,13 @@
    one profiled pane;
 8. holds ``ssd_scan`` against its plain version in bf16 and fp32 at the
    prefill and inject shapes of the registered ``mamba2-780m``, with
-   padded rows and a random initial state, and checks that bad inputs
-   raise;
+   padded rows and a random initial state, and at its prefill shape with
+   every position live, and checks that bad inputs raise;
 9. drives the Mamba2 token path, the same three phases on ``mamba2-780m``
    at full width (48 SSM layers, bf16 weights from a seed) in 4 panes of
    64 users from the same feature plane, counting ``ssd_scan`` launches
    (48 in prefill and 48 in inject a pane), then times the kernel at the
-   path's own inputs and one profiled pane, and compares the kernel path
+   path's own inputs and at a fully live prefill, and one profiled pane, and compares the kernel path
    with the plain path at fp32 on a pane of 16 rows (prefill, inject and
    every teacher-forced decode step's logits within 1e-4, equal slates).
 
@@ -920,16 +920,19 @@ def compare_token_paths_fp32(dev, cfg, inputs, plain, rows=SERVE_BATCH,
 # ssd_scan and the Mamba2 token path
 # ----------------------------------------------------------------------
 
-def ssd_inputs(dev, dtype, b, s, nh, hp, ds, seed=SEED):
-    """SSD inputs as mamba2's layers see them: row 0 left-padded, the last
-    row all padding (dt = 0, identity steps), a random f32 state."""
+def ssd_inputs(dev, dtype, b, s, nh, hp, ds, seed=SEED, padded=True):
+    """SSD inputs as mamba2's layers see them: with ``padded``, row 0
+    left-padded and the last row all padding (dt = 0, identity steps);
+    else every position live (a user with a full history); a random f32
+    state."""
     import torch
     g = torch.Generator().manual_seed(seed)
     x = (torch.randn((b, s, nh, hp), generator=g) * 0.5).to(dev, dtype)
     dt = torch.nn.functional.softplus(
         torch.randn((b, s, nh), generator=g) - 2.0)
-    dt[0, : s // 3] = 0.0
-    dt[-1] = 0.0
+    if padded:
+        dt[0, : s // 3] = 0.0
+        dt[-1] = 0.0
     A = -torch.exp(torch.log(torch.arange(1, nh + 1, dtype=torch.float32)))
     B, C = ((torch.randn((b, s, ds), generator=g) * 0.3).to(dev, dtype)
             for _ in range(2))
@@ -941,9 +944,11 @@ def ssd_inputs(dev, dtype, b, s, nh, hp, ds, seed=SEED):
 def ssd_work(args, chunk, init_state):
     """Bytes moved and operations needed for these inputs: x, dt, A, B, C,
     D and the initial state read once, y and the final state written once;
-    the multiply-adds the live (dt != 0) positions need: the causal pairs
-    of each chunk (C.B^T once a row, G X per head), C.state and the state
-    update per live position and head."""
+    the multiply-adds these inputs need: the causal pairs of live (dt != 0)
+    positions in each chunk (C.B^T once a row, G X per head), the state
+    update per live position and head, and C.state per position and head
+    wherever the state entering the chunk is not zero (every position when
+    an initial state is given, padded ones too)."""
     x, dt, A, B, C, D = args
     b, s, nh, hp = x.shape
     ds = B.shape[-1]
@@ -956,8 +961,12 @@ def ssd_work(args, chunk, init_state):
     per_row = live.amax(3).sum(2)                     # (b, nc)
     pairs_h = float((per_head * (per_head + 1) / 2).sum())
     pairs_r = float((per_row * (per_row + 1) / 2).sum())
+    # the state entering chunk c is not zero: a live position before it
+    before = per_head.cumsum(1) - per_head            # (b, nc, nh)
+    inter = chunk * float((before > 0).sum() if init_state is None
+                          else before.numel())
     n_ops = 2 * (hp * pairs_h + ds * pairs_r
-                 + 2 * hp * ds * float(live.sum()))
+                 + hp * ds * (float(live.sum()) + inter))
     return n_bytes, n_ops
 
 
@@ -1004,15 +1013,18 @@ def check_ssd_scan(dev, report):
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
     shapes = [("prefill", (MAMBA_BATCH, PANE_PREFILL, 48, 64, 128), 256,
-                   False),
+                   False, True),
                   ("inject", (MAMBA_BATCH, PANE_INJECT, 48, 64, 128), 256,
-                   True),
-                  ("small", (8, 96, 8, 32, 64), 32, True)]
+                   True, True),
+                  ("small", (8, 96, 8, 32, 64), 32, True, True),
+                  ("fully live prefill",
+                   (MAMBA_BATCH, PANE_PREFILL, 48, 64, 128), 256, False,
+                   False)]
     worst = 0.0
-    for name, shape, chunk, init in shapes:
+    for name, shape, chunk, init, padded in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             kind = str(dtype).split(".")[1]
-            args, h0 = ssd_inputs(dev, dtype, *shape)
+            args, h0 = ssd_inputs(dev, dtype, *shape, padded=padded)
             h0 = h0 if init else None
             y, h = ssd_scan(*args, chunk=chunk, init_state=h0)
             yw, hw = ssd_plain(*args, chunk=chunk, init_state=h0)
@@ -1036,7 +1048,7 @@ def check_ssd_scan(dev, report):
                                        rtol=ytol)
             torch.testing.assert_close(h, hw, atol=htol, rtol=htol)
             kept = h0[-1] if init else torch.zeros_like(h[-1])
-            if not torch.equal(h[-1], kept):
+            if padded and not torch.equal(h[-1], kept):
                 raise SystemExit(f"ssd_scan {name} {kind}: an all-padding "
                                  "row changed its state")
             if name == "prefill" and dtype == torch.bfloat16:
@@ -1045,7 +1057,8 @@ def check_ssd_scan(dev, report):
                   f"{min(chunk, shape[1])}{' from a random state' if init else ''}"
                   f": y max abs err {err:.3g} (tolerance {ytol:.3g}), final "
                   f"state {herr:.3g} (tolerance {htol:.3g}) vs the plain "
-                  f"version{truth}; the all-padding row keeps its state")
+                  f"version{truth}"
+                  f"{'; the all-padding row keeps its state' if padded else ''}")
     args, h0 = ssd_inputs(dev, torch.float32, 2, 64, 4, 32, 32)
     bad = {"dt in bf16": dict(dt=args[1].bfloat16()),
            "B not in x's dtype": dict(B=args[3].bfloat16()),
@@ -1173,6 +1186,12 @@ def run_mamba2_path(dev, gpu, plat, now, report):
     ms, plain_ms, bound_ms, bound_by = time_ssd_scan(
         *pre_calls[0], "prefill", gpu)
     time_ssd_scan(*inj_calls[0], "inject", gpu)
+    live_args, _ = ssd_inputs(dev, torch.bfloat16, MAMBA_BATCH, PANE_PREFILL,
+                              cfg.n_ssm_heads, cfg.ssm.head_dim,
+                              cfg.ssm.d_state, padded=False)
+    time_ssd_scan(live_args, dict(chunk=cfg.ssm.chunk_size),
+                  "fully live prefill", gpu)
+    del live_args
     report["ssd_scan"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=bound_by)
     del pre_calls, inj_calls

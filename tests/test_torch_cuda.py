@@ -217,15 +217,21 @@ def test_decode_attention_rejects_bad_input(cuda):
         decode_attention(q, kv, kv, pos.long(), ok)
 
 
-def _ssd_inputs(dev, dtype, b, s, nh, hp, ds, decay=1.0, seed=0):
-    """Inputs shaped like test_kernels._ssd_inputs; row 0 left-padded and
-    the last row all padding (dt = 0); a random f32 initial state."""
+def _ssd_inputs(dev, dtype, b, s, nh, hp, ds, decay=1.0, seed=0, pad="ends"):
+    """Inputs shaped like test_kernels._ssd_inputs and a random f32 initial
+    state. ``pad`` "ends": row 0 left-padded and the last row all padding
+    (dt = 0); "lead": every row's first half padding and the last row all
+    padding; "none": every position live."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     x = (torch.randn((b, s, nh, hp), generator=g) * 0.5).to(dev, dtype)
     dt = torch.nn.functional.softplus(
         torch.randn((b, s, nh), generator=g) - 2.0)
-    dt[0, : s // 3] = 0.0
-    dt[-1] = 0.0
+    if pad == "ends":
+        dt[0, : s // 3] = 0.0
+    if pad == "lead":
+        dt[:, : s // 2] = 0.0
+    if pad != "none":
+        dt[-1] = 0.0
     A = -torch.exp(torch.randn((nh,), generator=g) * 0.3) * decay
     B, C = ((torch.randn((b, s, ds), generator=g) * 0.3).to(dev, dtype)
             for _ in range(2))
@@ -235,20 +241,25 @@ def _ssd_inputs(dev, dtype, b, s, nh, hp, ds, decay=1.0, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,nh,hp,ds,chunk,decay,init", [
-    (4, 256, 48, 64, 128, 256, 1.0, False),  # mamba2-780m prefill
-    (4, 64, 48, 64, 128, 256, 1.0, True),    # its inject: chunk 64, a state
-    (2, 128, 8, 32, 64, 32, 1.0, False),     # test_kernels' shapes
-    (2, 128, 4, 64, 128, 64, 1.0, True),
-    (2, 64, 2, 32, 32, 16, 1.0, True),
-    (3, 96, 4, 128, 32, 48, 40.0, True),     # 1.5 tiles a chunk; overflow
-    (2, 24, 16, 32, 32, 256, 1.0, True),     # reduced mamba2: chunk 24
-    (2, 8, 16, 32, 32, 256, 1.0, True),      # its inject: chunk 8
+@pytest.mark.parametrize("b,s,nh,hp,ds,chunk,decay,init,pad", [
+    (4, 256, 48, 64, 128, 256, 1.0, False, "ends"),  # mamba2-780m prefill
+    (4, 64, 48, 64, 128, 256, 1.0, True, "ends"),    # its inject: chunk 64, a state
+    (2, 128, 8, 32, 64, 32, 1.0, False, "ends"),     # test_kernels' shapes
+    (2, 128, 4, 64, 128, 64, 1.0, True, "ends"),
+    (2, 64, 2, 32, 32, 16, 1.0, True, "ends"),
+    (3, 96, 4, 128, 32, 48, 40.0, True, "ends"),     # 3 tiles a chunk; overflow
+    (2, 24, 16, 32, 32, 256, 1.0, True, "ends"),     # reduced mamba2: chunk 24
+    (2, 8, 16, 32, 32, 256, 1.0, True, "ends"),      # its inject: chunk 8
+    (4, 256, 48, 64, 128, 256, 1.0, False, "none"),  # fully live mamba2 prefill
+    (2, 512, 48, 64, 128, 256, 1.0, True, "ends"),   # two chunks of 256
+    (2, 128, 5, 64, 128, 64, 1.0, True, "ends"),     # nh 5: not a whole head block
+    (3, 48, 3, 128, 64, 24, 1.0, True, "ends"),      # nh 3, hp 128, chunk 24
+    (4, 64, 48, 64, 128, 64, 1.0, True, "lead"),     # inject, leading rows dead
 ])
 def test_ssd_scan_kernel_vs_plain(cuda, dtype, b, s, nh, hp, ds, chunk,
-                                  decay, init):
+                                  decay, init, pad):
     args, h0 = _ssd_inputs(cuda, dtype, b, s, nh, hp, ds, decay,
-                           seed=s * hp + ds)
+                           seed=s * hp + ds, pad=pad)
     h0 = h0 if init else None
     before = ssd_scan.launches
     y, h = ssd_scan(*args, chunk=chunk, init_state=h0)
@@ -260,8 +271,9 @@ def test_ssd_scan_kernel_vs_plain(cuda, dtype, b, s, nh, hp, ds, chunk,
     tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(y.float(), yw.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(h, hw, atol=1e-4, rtol=1e-4)
-    want_last = h0[-1] if init else torch.zeros_like(h[-1])
-    assert torch.equal(h[-1], want_last)
+    if pad != "none":
+        want_last = h0[-1] if init else torch.zeros_like(h[-1])
+        assert torch.equal(h[-1], want_last)
 
 
 def test_ssd_scan_rejects_bad_input(cuda):

@@ -1,5 +1,5 @@
 """The port's SSD scan plain versions against the JAX package's, and the
-CUDA kernel's loop order emulated on the CPU.
+CUDA kernel's schedule and arithmetic emulated on the CPU.
 
 The same numpy inputs go through the port's ``ssd_chunked`` and
 ``ssd_ref_sequential`` and the JAX ``ssd_chunked``, ``ssd_ref_sequential``
@@ -10,11 +10,14 @@ orders; bf16 rounds y once), 1e-3 for the final state against the
 sequential recurrence, 1e-5 between the two packages' chunked paths.
 
 ``_kernel_order`` repeats what ``csrc/ssd_scan.cu`` sums and in which
-tiles: a warp-wise scan of dt * A, row tiles of 32 within a chunk of any
-length, G = (C_i B_j^T) exp(cum_i - cum_j) selected only where j <= i,
-the state update over the same row tiles. It is held against the
-sequential recurrence, with decays strong enough that exp(cum_i - cum_j)
-overflows above the diagonal, and with padded (dt = 0) rows.
+tiles: a CTA per (batch row, block of two heads), a shuffle scan of dt * A
+per 32 rows, 16-row tiles in bands of 64, C_i B_j^T once per tile pair for
+the block, G' = (C_i B_j^T) exp(cum_i - cum_j) dt_j selected only where
+j <= i, and in bf16 every f32 operand split into hi and lo bf16 parts with
+torch's bf16 rounding. It is held against the sequential recurrence, with
+decays strong enough that exp(cum_i - cum_j) overflows above the diagonal,
+with padded (dt = 0) rows, with nh that the head block does not divide,
+and on fully live rows.
 """
 import jax
 import jax.numpy as jnp
@@ -28,7 +31,7 @@ from repro.models.ssm import ssd_chunked as jax_chunked
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_ref_sequential
 
-TILE = 32  # kTile of csrc/ssd_scan.cu
+TILE, BAND, HEAD_BLOCK = 16, 64, 2  # kR, kBand, kHB of csrc/ssd_scan.cu
 
 
 def _tol(dtype):
@@ -146,81 +149,152 @@ def test_ssd_scan_on_cpu_is_the_chunked_version():
         ssd_scan(*t, chunk=32)
 
 
-def _warp_scan(v):
-    """csrc/ssd_scan.cu's inclusive scan over the chunk axis (dim 1): a
-    shuffle-up scan within each warp of 32, then the totals of the earlier
-    warps added one by one."""
-    q = v.shape[1]
-    out = torch.zeros((v.shape[0], -(-q // 32) * 32) + tuple(v.shape[2:]))
-    out[:, :q] = v
-    for w0 in range(0, out.shape[1], 32):
-        seg = out[:, w0:w0 + 32]
+def _scan(v):
+    """csrc/ssd_scan.cu's inclusive scan over the chunk axis (dim 0): a
+    shuffle-up scan within each group of 32 rows, plus the running total
+    of the groups before it. Rows up to the next multiple of 32 are kept
+    (their dt is 0, so they repeat the chunk's last sum)."""
+    q = v.shape[0]
+    out = torch.zeros((-(-q // 32) * 32,) + tuple(v.shape[1:]))
+    out[:q] = v
+    carry = torch.zeros(v.shape[1:])
+    for w0 in range(0, out.shape[0], 32):
+        seg = out[w0:w0 + 32]
         for off in (1, 2, 4, 8, 16):
-            seg = torch.cat([seg[:, :off], seg[:, off:] + seg[:, :-off]], 1)
-        out[:, w0:w0 + 32] = seg
-    totals = out[:, 31::32].clone()
-    for w in range(1, out.shape[1] // 32):
-        for prev in range(w):
-            out[:, w * 32:(w + 1) * 32] += totals[:, prev:prev + 1]
-    return out[:, :q]
+            seg = torch.cat([seg[:off], seg[off:] + seg[:-off]], 0)
+        out[w0:w0 + 32] = seg + carry
+        carry = out[w0 + 31].clone()
+    return out
 
 
-def _kernel_order(x, dt, A, B, C, D, chunk, h0=None):
-    """The kernel's tiles and order of sums, for all (row, head) at once.
-    Rows past the chunk's end in its last tile are zeros, as staged."""
+def _split(v):
+    """An f32 operand as the kernel gives it to the bf16 tensor cores:
+    hi = bf16(v) and lo = bf16(v - hi), each multiplied in turn."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _exact(v):
+    """fp32: the kernel's CUDA-core products take the operand as it is."""
+    return v, torch.zeros_like(v)
+
+
+def _kernel_order(x, dt, A, B, C, D, chunk, h0=None, head_block=HEAD_BLOCK):
+    """csrc/ssd_scan.cu's schedule and arithmetic, one (batch row, block of
+    ``head_block`` heads) at a time: 16-row tiles in bands of 64, row tiles
+    whose dt are all 0 for the block skipped, C_i B_j^T once per tile pair
+    for the block, G' = (C_i B_j^T) exp(cum_i - cum_j) dt_j selected only
+    where j <= i, the inter term skipped while the state is zero, the
+    state update over the live tiles; in bf16 each f32 operand (G', the
+    state, x dt exp(cum_last - cum)) split into hi and lo bf16 parts. Rows
+    past the chunk's end in its last tile are zeros, as staged."""
     b, s, nh, hp = x.shape
+    ds = B.shape[-1]
+    split = _split if x.dtype == torch.bfloat16 else _exact
     xf, Bf, Cf = x.float(), B.float(), C.float()
-    st = (torch.zeros((b, nh, hp, B.shape[-1])) if h0 is None
-          else h0.clone())
     y = torch.empty((b, s, nh, hp))
-    for c0 in range(0, s, chunk):
-        rows = slice(c0, c0 + chunk)
-        xc, dtc, Bc, Cc = xf[:, rows], dt[:, rows], Bf[:, rows], Cf[:, rows]
-        cum = _warp_scan(dtc * A)                        # (b, Q, nh)
-        for i0 in range(0, chunk, TILE):
-            gi = torch.arange(i0, min(i0 + TILE, chunk))
-            acc = torch.einsum("bis,bhps->bihp", Cc[:, gi], st) \
-                * torch.exp(cum[:, gi])[..., None]
-            for j0 in range(0, i0 + 1, TILE):
-                gj = torch.arange(j0, min(j0 + TILE, chunk))
-                dot = torch.einsum("bis,bjs->bij", Cc[:, gi], Bc[:, gj])
-                seg = cum[:, gi, None, :] - cum[:, None, gj, :]
-                below = (gj[None, :] <= gi[:, None])[None, :, :, None]
-                # exp only where j <= i: select, never multiply by a mask
-                G = torch.where(below, dot[..., None] * torch.exp(
-                    torch.where(below, seg, 0.0)), 0.0)  # (b, i, j, nh)
-                xdt = xc[:, gj] * dtc[:, gj, :, None]
-                acc = acc + torch.einsum("bijh,bjhp->bihp", G, xdt)
-            y[:, c0 + gi] = acc + D[:, None] * xc[:, gi]
-        hs = torch.exp(cum[:, -1])[:, :, None, None] * st
-        for j0 in range(0, chunk, TILE):
-            gj = torch.arange(j0, min(j0 + TILE, chunk))
-            w = dtc[:, gj] * torch.exp(cum[:, -1:] - cum[:, gj])
-            hs = hs + torch.einsum("bjhp,bjs->bhps", xc[:, gj] * w[..., None],
-                                   Bc[:, gj])
-        st = hs
-    return y.to(x.dtype), st
+    hout = torch.empty((b, nh, hp, ds))
+    rows16 = -(-chunk // TILE) * TILE
+    for bi, hb, c0 in ((bi, hb, c0) for bi in range(b)
+                       for hb in range(0, nh, head_block)
+                       for c0 in range(0, s, chunk)):
+        hs = slice(hb, min(hb + head_block, nh))
+        if c0 == 0:   # the block's state; None while it is zero
+            st = None if h0 is None else h0[bi, hs].clone()
+
+        def rows(t):
+            out = torch.zeros((rows16,) + tuple(t.shape[1:]))
+            out[:chunk] = t[c0:c0 + chunk]
+            return out
+        xc, dtc = rows(xf[bi, :, hs]), rows(dt[bi, :, hs])
+        Bc, Cc = rows(Bf[bi]), rows(Cf[bi])
+        cum = _scan(dtc * A[hs])[:rows16]                  # (rows16, hv)
+        cl = cum[chunk - 1]
+        w = dtc * torch.exp(cl - cum)
+        live = [bool((dtc[j0:j0 + TILE] != 0).any())
+                for j0 in range(0, rows16, TILE)]
+        for b0 in range(0, rows16, BAND):
+            band_end = min(b0 + BAND, rows16)
+            for i0 in range(b0, band_end, TILE):
+                gi = torch.arange(i0, i0 + TILE)
+                ci = Cc[gi]
+                acc = torch.zeros((TILE, st.shape[0] if st is not None
+                                   else dtc.shape[1], hp))
+                if st is not None:                          # inter term
+                    hi, lo = split(st)
+                    acc = (torch.einsum("is,hps->ihp", ci, hi)
+                           + torch.einsum("is,hps->ihp", ci, lo)) \
+                        * torch.exp(cum[gi])[..., None]
+                for j0 in range(0, band_end, TILE):         # intra term
+                    if not live[j0 // TILE] or j0 > i0:
+                        continue
+                    gj = torch.arange(j0, j0 + TILE)
+                    S = ci @ Bc[gj].T                       # once a block
+                    below = (gj[None, :] <= gi[:, None])[..., None]
+                    seg = cum[gi][:, None] - cum[gj][None, :]
+                    # exp only where j <= i: select, never multiply by a mask
+                    G = torch.where(below, S[..., None] * torch.exp(
+                        torch.where(below, seg, 0.0)) * dtc[gj][None], 0.0)
+                    hi, lo = split(G)                       # (i, j, hv)
+                    acc = acc + torch.einsum("ijh,jhp->ihp", hi, xc[gj]) \
+                        + torch.einsum("ijh,jhp->ihp", lo, xc[gj])
+                out = acc + D[hs][None, :, None] * xc[gi]
+                n = min(TILE, chunk - i0)
+                y[bi, c0 + i0:c0 + i0 + n, hs] = out[:n]
+        if any(live) or st is not None:                     # state update
+            new = torch.zeros((dtc.shape[1], hp, ds)) if st is None \
+                else torch.exp(cl)[:, None, None] * st
+            for j0 in range(0, rows16, TILE):
+                if live[j0 // TILE]:
+                    gj = torch.arange(j0, j0 + TILE)
+                    hi, lo = split(xc[gj] * w[gj][..., None])
+                    new = new + torch.einsum("jhp,js->hps", hi, Bc[gj]) \
+                        + torch.einsum("jhp,js->hps", lo, Bc[gj])
+            st = new
+        if c0 + chunk == s:
+            hout[bi, hs] = 0.0 if st is None else st
+    return y.to(x.dtype), hout
 
 
 @pytest.mark.parametrize("s,chunk,decay,dtype", [
-    (64, 16, 1.0, "float32"),    # chunks shorter than a tile
-    (96, 48, 1.0, "float32"),    # a chunk of 1.5 tiles
+    (64, 16, 1.0, "float32"),    # a chunk of one tile
+    (96, 48, 1.0, "float32"),    # three tiles: a band with an idle warp
     (128, 64, 40.0, "float32"),  # decay that overflows above the diagonal
-    (24, 24, 1.0, "float32"),    # reduced mamba2's prefill chunk
+    (24, 24, 1.0, "float32"),    # reduced mamba2's prefill chunk: 1.5 tiles
     (64, 64, 40.0, "bfloat16"),
 ])
 def test_kernel_order_matches_sequential(s, chunk, decay, dtype):
-    arrs = list(_inputs(6, 3, s, 4, 32, 64, dtype, decay))
-    arrs[1][1, :s // 3] = 0.0       # left-padded row
-    arrs[1][2] = 0.0                # all padding
+    _check_kernel_order(s, 4, chunk, dtype, decay, padded=True)
+
+
+@pytest.mark.parametrize("s,nh,chunk,dtype,padded", [
+    (32, 4, 8, "float32", True),       # a chunk shorter than a tile
+    (48, 3, 24, "bfloat16", True),     # nh 3: a block of 2 heads and one of 1
+    (96, 5, 96, "float32", True),      # nh 5; a band and a half
+    (256, 4, 128, "bfloat16", False),  # fully live: two bands, two chunks
+    (128, 3, 128, "float32", False),   # fully live, nh 3
+])
+def test_kernel_order_head_blocks(s, nh, chunk, dtype, padded):
+    _check_kernel_order(s, nh, chunk, dtype, 1.0, padded)
+
+
+def _check_kernel_order(s, nh, chunk, dtype, decay, padded):
+    """The emulation against the sequential recurrence and the chunked
+    version, from a random state; with ``padded``, row 1 is left-padded
+    and row 2 all padding, which must keep its state bit for bit."""
+    arrs = list(_inputs(6, 3, s, nh, 32, 64, dtype, decay))
+    if padded:
+        arrs[1][1, :s // 3] = 0.0       # left-padded row
+        arrs[1][2] = 0.0                # all padding
     t = _torch(arrs, dtype)
     h0 = torch.from_numpy(np.random.RandomState(7).normal(
-        size=(3, 4, 32, 64)).astype(np.float32))
+        size=(3, nh, 32, 64)).astype(np.float32))
     y, h = _kernel_order(*t, chunk=chunk, h0=h0)
     ys, hs = ssd_ref_sequential(*t, h0)
     assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
     np.testing.assert_allclose(_f32(y), _f32(ys), **_tol(dtype))
     np.testing.assert_allclose(h.numpy(), hs.numpy(), atol=1e-3, rtol=1e-3)
-    assert torch.equal(h[2], h0[2])
+    if padded:
+        assert torch.equal(h[2], h0[2])
     yc, hc = ssd_chunked(*t, chunk=chunk, init_state=h0)
     np.testing.assert_allclose(_f32(y), _f32(yc), **_tol(dtype))
