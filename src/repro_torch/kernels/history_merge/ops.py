@@ -9,8 +9,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.history_merge.ref import history_merge_ref
 
-# the kernel stages 4 int32 per event in (default, <= 48 KB) shared memory
-MAX_EVENTS = 48 * 1024 // 16
+# events a row may hold: the kernel keeps a row's hash table, sort keys and
+# items in shared memory (172 KB at 3072 events) and stages up to four
+# events a thread, 1024 threads a row
+MAX_EVENTS = 3072
 
 
 def _lib():

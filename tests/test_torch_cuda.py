@@ -62,6 +62,24 @@ def test_history_merge_kernel_bit_equal(cuda, b, lb, lr, k, n_items, t_max):
         assert torch.equal(g, w)
 
 
+def test_history_merge_kernel_int32_extremes(cuda):
+    """Timestamps at int32's ends and around 0, where the kernel's packed
+    key flips the sign bit (INT_MIN at index 0 packs to the key 0)."""
+    rng = np.random.RandomState(7)
+    b, lb, lr, k = 32, 100, 30, 64
+    ends = np.array([np.iinfo(np.int32).min, np.iinfo(np.int32).min + 1, -1,
+                     0, 1, np.iinfo(np.int32).max], np.int32)
+    arrs = [rng.randint(0, 20, (b, lb)), ends[rng.randint(0, 6, (b, lb))],
+            rng.rand(b, lb) < 0.8, rng.randint(0, 20, (b, lr)),
+            ends[rng.randint(0, 6, (b, lr))], rng.rand(b, lr) < 0.8]
+    arrs[0][:, 0], arrs[1][:, 0], arrs[2][:, 0] = 99, ends[0], True
+    t = [torch.from_numpy(np.asarray(a, np.int32)).to(cuda) for a in arrs]
+    got = history_merge(*t, out_len=k)
+    torch.cuda.synchronize()
+    for g, w in zip(got, history_merge_ref(*t, out_len=k)):
+        assert torch.equal(g, w)
+
+
 def test_history_merge_rejects_bad_input(cuda):
     x = torch.zeros((4, 8), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
@@ -171,25 +189,67 @@ def test_flash_attention_rejects_bad_input(cuda):
         flash_attention(q, q, q, pos, pos, ok)
 
 
+def _sparse_layout(kind, b, w, seed):
+    """(pos, stored) on the CPU. path: the token path's rows, a left-padded
+    prefill of 2W/3 slots with a stored tail, a left-padded inject of W/6
+    slots with a few stored, then decode tokens, ~10% of the ring live;
+    one live: a single live slot a row; fully live: wrapped, all stored."""
+    rng = np.random.RandomState(seed)
+    slot = np.arange(w)[None]
+    if kind == "path":
+        pre, inj = 2 * w // 3, w // 6
+        hist = np.minimum(rng.geometric(1 / 32, b), pre)[:, None]
+        fresh = rng.randint(0, 9, b)[:, None]
+        pos = pre + inj + rng.randint(0, min(10, w - pre - inj), b)
+        stored = ((slot >= pre - hist) & (slot < pre)) \
+            | ((slot >= pre + inj - fresh) & (slot < pre + inj)) \
+            | ((slot >= pre + inj) & (slot <= pos[:, None])) \
+            | ((slot > pos[:, None]) & (rng.rand(b, w) < 0.5))
+    elif kind == "one live":
+        pos = rng.randint(0, w, b)
+        stored = slot == (rng.randint(0, w, b) % (pos + 1))[:, None]
+        stored[:, w - 1] |= pos < w - 1  # past pos: dead
+    else:
+        pos = w + rng.randint(0, 2 * w, b)
+        stored = np.ones((b, w), bool)
+    return (torch.from_numpy(pos.astype(np.int32)),
+            torch.from_numpy(np.ascontiguousarray(stored)))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,w,nq,nkv,hd", [
-    (256, 384, 8, 8, 32),    # the serving shape
-    (16, 384, 8, 2, 64),     # GQA
-    (5, 100, 4, 2, 16),      # W not a multiple of the tile
-    (5, 77, 8, 1, 128),      # MQA, hd 128
-    (3, 33, 16, 1, 32),      # the largest group the kernel takes
+@pytest.mark.parametrize("b,w,nq,nkv,hd,layout", [
+    pytest.param(256, 384, 8, 8, 32, "random", id="256-384-8-8-32"),  # serving
+    pytest.param(16, 384, 8, 2, 64, "random", id="16-384-8-2-64"),    # GQA
+    pytest.param(5, 100, 4, 2, 16, "random", id="5-100-4-2-16"),      # ragged
+    pytest.param(5, 77, 8, 1, 128, "random", id="5-77-8-1-128"),      # MQA
+    pytest.param(3, 33, 16, 1, 32, "random", id="3-33-16-1-32"),      # g = 16
+    pytest.param(256, 384, 8, 8, 32, "path", id="256-384-8-8-32-path"),
+    pytest.param(16, 384, 8, 2, 64, "path", id="16-384-8-2-64-path"),
+    pytest.param(256, 384, 8, 8, 32, "one live",
+                 id="256-384-8-8-32-one-live"),
+    pytest.param(5, 77, 8, 1, 128, "one live", id="5-77-8-1-128-one-live"),
+    pytest.param(256, 384, 8, 8, 32, "fully live",
+                 id="256-384-8-8-32-fully-live"),
+    pytest.param(3, 2100, 16, 1, 32, "fully live",
+                 id="3-2100-16-1-32-fully-live"),
 ])
-def test_decode_attention_kernel_vs_plain(cuda, dtype, b, w, nq, nkv, hd):
+def test_decode_attention_kernel_vs_plain(cuda, dtype, b, w, nq, nkv, hd,
+                                          layout):
     """Partial, exactly full and wrapped rings, slots left unstored by
-    left-padded prefills, and a row with no live slot."""
+    left-padded prefills, and a row with no live slot (layout "random");
+    the token path's sparse rows, one live slot a row, and a fully live
+    ring (``_sparse_layout``)."""
     g = torch.Generator(device="cpu").manual_seed(w * hd + nq)
     q, k, v = (torch.randn(shape, generator=g).to(cuda, dtype) for shape in
                ((b, 1, nq, hd), (b, w, nkv, hd), (b, w, nkv, hd)))
-    pos = torch.randint(0, 3 * w, (b,), generator=g, dtype=torch.int32)
-    pos[:3] = torch.tensor([w // 3, w - 1, w], dtype=torch.int32)[:b]
-    stored = torch.rand((b, w), generator=g) < 0.8
-    stored[torch.arange(b), (pos % w).long()] = True
-    stored[-1] = False
+    if layout == "random":
+        pos = torch.randint(0, 3 * w, (b,), generator=g, dtype=torch.int32)
+        pos[:3] = torch.tensor([w // 3, w - 1, w], dtype=torch.int32)[:b]
+        stored = torch.rand((b, w), generator=g) < 0.8
+        stored[torch.arange(b), (pos % w).long()] = True
+        stored[-1] = False
+    else:
+        pos, stored = _sparse_layout(layout, b, w, w * hd + nq)
     pos, stored = pos.to(cuda), stored.to(cuda)
     before = decode_attention.launches
     got = decode_attention(q, k, v, pos, stored)
