@@ -26,11 +26,22 @@
    path with its plain path at fp32, teacher-forced over every decode
    step, and times the phases, the kernels at the path's own inputs and
    one profiled pane;
-8. holds ``ssd_scan`` against its plain version in bf16 and fp32 at the
+8. drives the request-level Gateway over the same engine shapes and
+   feature plane (``ServerConfig(slate_len=10, cache_entries=2048)``):
+   ``warm`` admits 1024 users with fresh events to the host prefill-state
+   LRU (4 prefill panes), a hit wave of the same users must be served
+   every row from the LRU on the inject path, and a miss wave of 1024
+   other users on the prefill path; each wave's panes are timed by phase
+   and its kernel launches counted. At fp32 a 64-row Gateway's hit-path
+   first logits must be within 1e-4 of the engine's direct prefill ->
+   inject -> decode_slate on the same rows and clock, with equal slates
+   (a row that differs must be a tie within 1e-4); in bf16 the differing
+   slates are counted;
+9. holds ``ssd_scan`` against its plain version in bf16 and fp32 at the
    prefill and inject shapes of the registered ``mamba2-780m``, with
    padded rows and a random initial state, and at its prefill shape with
    every position live, and checks that bad inputs raise;
-9. drives the Mamba2 token path, the same three phases on ``mamba2-780m``
+10. drives the Mamba2 token path, the same three phases on ``mamba2-780m``
    at full width (48 SSM layers, bf16 weights from a seed) in 4 panes of
    64 users from the same feature plane, counting ``ssd_scan`` launches
    (48 in prefill and 48 in inject a pane), then times the kernel at the
@@ -69,6 +80,8 @@ N_PANES, SLATE_LEN = 4, 10
 # the Mamba2 path's panes: 64 rows, as each row's f32 SSM state is 48 x 48
 # x 64 x 128 x 4 B = 75.5 MB; the fp32 comparison on a smaller pane
 MAMBA_BATCH, MAMBA_FP32_ROWS = 64, 16
+# the Gateway phase: users a wave, the host LRU's entry budget, fp32 pane
+GW_USERS, GW_CACHE_ENTRIES, GW_FP32_ROWS = 1024, 2048, 64
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int32": 67e12}
 TOL = {"bfloat16": 3e-2, "float32": 2e-5}    # as tests/test_kernels.py
@@ -949,6 +962,294 @@ def compare_token_paths_fp32(dev, cfg, inputs, plain, rows=SERVE_BATCH,
 
 
 # ----------------------------------------------------------------------
+# The Gateway: warm, a hit wave from the host LRU, a miss wave
+# ----------------------------------------------------------------------
+
+class PhaseClock:
+    """Host-clock ms of wrapped calls by phase, each call starting and
+    ending in a device synchronise (``sync``); a call made inside another
+    call of the same phase counts once, in the outer one."""
+
+    def __init__(self):
+        self.ms, self.calls, self._depth = {}, {}, {}
+
+    def wrap(self, phase, fn, sync=True):
+        import torch
+
+        def timed(*args, **kwargs):
+            depth = self._depth.get(phase, 0)
+            if depth:
+                return fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self._depth[phase] = 1
+            try:
+                out = fn(*args, **kwargs)
+                if sync:
+                    torch.cuda.synchronize()
+            finally:
+                self._depth[phase] = 0
+            self.ms[phase] = self.ms.get(phase, 0.0) + \
+                (time.perf_counter() - t0) * 1e3
+            self.calls[phase] = self.calls.get(phase, 0) + 1
+            return out
+        return timed
+
+    def patches(self, gw):
+        """The patches that time a Gateway's phases: pane assembly (host
+        concats and host->device copies), the engine's prefill, inject
+        and decode_slate, the device->host copy of a prefill state and
+        the slicing of its rows into LRU entries."""
+        from repro_torch.serving import scheduler as scheduler_mod
+        eng = gw.engine
+        return [
+            mock.patch.object(scheduler_mod, "_cat_rows",
+                              self.wrap("assembly", scheduler_mod._cat_rows)),
+            mock.patch.object(scheduler_mod, "_join",
+                              self.wrap("assembly", scheduler_mod._join)),
+            mock.patch.object(scheduler_mod, "_host_state", self.wrap(
+                "host copy", scheduler_mod._host_state)),
+            mock.patch.object(scheduler_mod, "_slice_row", self.wrap(
+                "row slicing", scheduler_mod._slice_row, sync=False)),
+            mock.patch.object(eng, "prefill", self.wrap("prefill",
+                                                        eng.prefill)),
+            mock.patch.object(eng, "inject", self.wrap("inject", eng.inject)),
+            mock.patch.object(eng, "decode_slate",
+                              self.wrap("decode_slate", eng.decode_slate)),
+        ]
+
+
+def fresh_users(injector, now, rng, n, exclude=()):
+    """``n`` users, in a seeded order, whose realtime buffer holds events
+    after the serving snapshot (each has a fresh suffix to inject)."""
+    cand = rng.permutation(N_USERS)
+    cand = cand[~np.isin(cand, np.asarray(exclude, np.int64))][:3 * n]
+    sfx = injector.fresh_suffix_tokens(cand, now, cap=PANE_INJECT)
+    keep = cand[[len(x) > 0 for x in sfx]][:n]
+    if len(keep) < n:
+        raise SystemExit(f"only {len(keep)} of {n} users have fresh events")
+    return keep
+
+
+def gateway_wave(gw, users, now, label, gpu, clock=None):
+    """``submit_many`` + ``flush`` of ``users`` at ``now``; returns the
+    tickets, the wave's launches, its host-clock seconds (ending in a
+    device synchronise) and the cache counters' change."""
+    import torch
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.serving import Request
+
+    c0 = dict(gw.cache.stats())
+    with contextlib.ExitStack() as stack:
+        for patch in (clock.patches(gw) if clock is not None else []):
+            stack.enter_context(patch)
+        torch.cuda.synchronize()
+        flash_attention.launches = decode_attention.launches = 0
+        t0 = time.perf_counter()
+        tickets = gw.submit_many([Request(user=int(u), now=now)
+                                  for u in users])
+        gw.flush(now)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {"flash_attention": flash_attention.launches,
+                    "decode_attention": decode_attention.launches}
+    c1 = gw.cache.stats()
+    delta = {k: c1[k] - c0[k] for k in ("hits", "misses", "evictions")}
+    panes = -(-len(users) // gw.engine.scfg.max_batch)
+    print(f"gateway {label} wave: {len(users)} requests in {panes} panes of "
+          f"{gw.engine.scfg.max_batch}, {elapsed / panes * 1e3:.2f} ms per "
+          f"pane, {len(users) / elapsed:.1f} requests/s (host clock, ending "
+          f"in a device synchronise{', phases timed' if clock else ''}); "
+          f"cache {delta}; launches {launches} [{gpu}]")
+    if clock is not None:
+        other = elapsed * 1e3 - sum(clock.ms.values())
+        print(f"gateway {label} wave ms per pane by phase: " + ", ".join(
+            f"{k} {v / panes:.3f}" for k, v in clock.ms.items())
+            + f", the rest of the host (features, suffixes, LRU, "
+            f"telemetry) {other / panes:.3f} (host clock, synchronised) "
+            f"[{gpu}]")
+    return tickets, launches, elapsed, delta
+
+
+def check_gateway_slates(tickets, vocab, label):
+    for t in tickets:
+        s = t.response.slate
+        if s.shape != (SLATE_LEN,) or s.min() < 0 or s.max() >= vocab \
+                or len(set(s.tolist())) != SLATE_LEN:
+            raise SystemExit(f"gateway {label}: bad slate {s.tolist()}")
+        if not np.isfinite(t.response.scores[:vocab]).all():
+            raise SystemExit(f"gateway {label}: non-finite scores")
+
+
+def pick_gaps(eng, state, slate_len=SLATE_LEN):
+    """Greedy picks from an inject state and, per row and pick, the gap
+    between the best and the second-best remaining logit."""
+    import torch
+    from repro_torch.serving.engine import NEG_INF
+    dec = eng.finalize(state)
+    logits = state["first_logits"]
+    mask = torch.zeros_like(logits, dtype=torch.bool)
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    gaps = []
+    for i in range(slate_len):
+        masked = torch.where(mask, NEG_INF, logits)
+        top2 = masked.topk(2, dim=-1).values
+        gaps.append(top2[:, 0] - top2[:, 1])
+        tok = masked.argmax(-1).to(torch.int32)
+        mask[rows, tok.long()] = True
+        if i < slate_len - 1:
+            logits, dec = eng.decode(dec, tok[:, None])
+    return torch.stack(gaps, 1)
+
+
+def compare_gateway_fp32(dev, cfg, injector, users, now):
+    """A 64-row fp32 Gateway's hit path against the engine's direct
+    prefill -> inject -> decode_slate on the same rows and clock: first
+    logits within 1e-4, equal slates except on a row whose picks tie
+    within 1e-4."""
+    import torch
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import (Gateway, Request, ServerConfig,
+                                     ServingConfig, ServingEngine)
+
+    params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                         torch.float32, dev)
+    eng = ServingEngine(cfg, params, ServingConfig(
+        max_batch=GW_FP32_ROWS, prefill_len=PANE_PREFILL,
+        inject_len=PANE_INJECT, cache_capacity=PANE_CAPACITY), device=dev)
+    gw = Gateway(eng, injector, ServerConfig(slate_len=SLATE_LEN,
+                                             cache_entries=GW_FP32_ROWS))
+    users = users[:GW_FP32_ROWS]
+    gw.warm(users, now)
+    tickets = gw.submit_many([Request(user=int(u), now=now) for u in users])
+    gw.flush(now)
+    if any(t.response.telemetry.path != "inject" for t in tickets):
+        raise SystemExit("fp32 gateway: a warmed row left the inject path")
+    state, slate = serve_pane(eng, *pane_inputs(eng, injector, users, now))
+    want = state["first_logits"]
+    got = torch.from_numpy(np.stack([t.response.scores for t in tickets]))
+    got_slate = np.stack([t.response.slate for t in tickets])
+    err = float((got.to(dev) - want).abs().max())
+    torch.testing.assert_close(got.to(dev), want, atol=E2E_TOL, rtol=E2E_TOL)
+    flipped = np.flatnonzero((got_slate != slate).any(1))
+    gaps = pick_gaps(eng, state)[torch.as_tensor(flipped, device=dev)]
+    min_gap = gaps.min(1).values.tolist() if len(flipped) else []
+    print(f"fp32 gateway hit path vs the engine's prefill -> inject -> "
+          f"decode_slate, {len(users)} rows: first logits max abs err "
+          f"{err:.3g} (tolerance {E2E_TOL}), {len(flipped)} slates differ; "
+          f"smallest top-2 gap of each differing row: "
+          f"{[f'{x:.3g}' for x in min_gap]}")
+    if any(g > E2E_TOL for g in min_gap):
+        raise SystemExit("fp32 gateway: a slate differs on a row whose "
+                         "picks are separated by more than the tolerance")
+
+
+def run_gateway_path(dev, gpu, plat, params, now):
+    """The request-level Gateway at full width: warm, a hit wave served
+    from the host LRU through inject, a miss wave through prefill."""
+    import torch
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.serving import (Gateway, ServerConfig, ServingConfig,
+                                     ServingEngine)
+
+    cfg = plat.model_cfg
+    eng = ServingEngine(cfg, params, ServingConfig(
+        max_batch=SERVE_BATCH, prefill_len=PANE_PREFILL,
+        inject_len=PANE_INJECT, cache_capacity=PANE_CAPACITY), device=dev)
+    gw = Gateway(eng, plat.injector, ServerConfig(
+        slate_len=SLATE_LEN, cache_entries=GW_CACHE_ENTRIES))
+    rng = np.random.RandomState(SEED + 3)
+    hit_users = fresh_users(plat.injector, now, rng, GW_USERS)
+    miss_users = fresh_users(plat.injector, now, rng, GW_USERS,
+                             exclude=hit_users)
+    # warm-up on users outside both waves, one pane (allocator, pinned
+    # host blocks), then a fresh Gateway so the waves start from zero
+    spare = fresh_users(plat.injector, now, rng, SERVE_BATCH,
+                        exclude=np.concatenate([hit_users, miss_users]))
+    gateway_wave(gw, spare, now, "warm-up", gpu)
+    gw = Gateway(eng, plat.injector, ServerConfig(
+        slate_len=SLATE_LEN, cache_entries=GW_CACHE_ENTRIES))
+
+    launches = {"flash_attention": 0, "decode_attention": 0}
+    clock = PhaseClock()
+    with contextlib.ExitStack() as stack:
+        for patch in clock.patches(gw):
+            stack.enter_context(patch)
+        torch.cuda.synchronize()
+        flash_attention.launches = decode_attention.launches = 0
+        t0 = time.perf_counter()
+        warmed = gw.warm(hit_users, now)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    warm_launches = {"flash_attention": flash_attention.launches,
+                     "decode_attention": decode_attention.launches}
+    panes = GW_USERS // SERVE_BATCH
+    st = gw.stats()
+    print(f"gateway warm: {warmed} states admitted in {st.prefill_calls} "
+          f"prefill panes, {warm_s / panes * 1e3:.2f} ms per pane (host "
+          f"clock); by phase per pane: " + ", ".join(
+              f"{k} {v / panes:.3f}" for k, v in clock.ms.items())
+          + f"; LRU {len(gw.cache)} entries, "
+          f"{gw.cache.bytes_per_shard / 1e9:.3f} GB on the host "
+          f"({gw.cache.bytes_per_shard / len(gw.cache) / 1e6:.3f} MB an "
+          f"entry); launches {warm_launches} [{gpu}]")
+    if warmed != GW_USERS or warm_launches["flash_attention"] <= 0:
+        raise SystemExit(f"gateway warm: {warmed} admitted, launches "
+                         f"{warm_launches}")
+
+    hit, hit_launches, _, hit_delta = gateway_wave(
+        gw, hit_users, now, "hit", gpu, clock=PhaseClock())
+    paths = {t.response.telemetry.path for t in hit}
+    hit_rate = hit_delta["hits"] / GW_USERS
+    st = gw.stats()
+    print(f"gateway hit wave: hit rate {hit_rate:.3f}, paths {sorted(paths)}; "
+          f"stats paths {st.paths}, prefill_calls {st.prefill_calls}, "
+          f"inject_calls {st.inject_calls}")
+    if hit_rate != 1.0 or paths != {"inject"} \
+            or not all(t.response.telemetry.cache_hit for t in hit):
+        raise SystemExit("gateway hit wave: a row was not a hit on the "
+                         "inject path")
+    gateway_wave(gw, hit_users, now, "hit (again)", gpu)
+
+    miss, miss_launches, _, miss_delta = gateway_wave(
+        gw, miss_users, now, "miss", gpu, clock=PhaseClock())
+    paths = {t.response.telemetry.path for t in miss}
+    print(f"gateway miss wave: hit rate {miss_delta['hits'] / GW_USERS:.3f}, "
+          f"paths {sorted(paths)}; stats {gw.stats().paths}")
+    if paths != {"prefill"} or miss_delta["misses"] != GW_USERS:
+        raise SystemExit("gateway miss wave: a row was not on the prefill "
+                         "path")
+    for name, n in (("warm", warm_launches), ("hit", hit_launches),
+                    ("miss", miss_launches)):
+        if name != "warm" and min(n.values()) <= 0:
+            raise SystemExit(f"gateway {name} wave: a kernel never "
+                             f"launched: {n}")
+        for k, v in n.items():
+            launches[k] += v
+    check_gateway_slates(hit, cfg.vocab_size, "hit")
+    check_gateway_slates(miss, cfg.vocab_size, "miss")
+
+    # bf16: the Gateway's hit slates against the engine's direct path
+    differ = 0
+    for lo in range(0, GW_USERS, SERVE_BATCH):
+        users = hit_users[lo:lo + SERVE_BATCH]
+        _, slate = serve_pane(eng, *pane_inputs(eng, plat.injector, users,
+                                                now))
+        got = np.stack([t.response.slate for t in hit[lo:lo + SERVE_BATCH]])
+        differ += int((got != slate).any(1).sum())
+    print(f"bf16 gateway hit slates vs the engine's direct prefill -> "
+          f"inject -> decode_slate on the same rows: {differ} of "
+          f"{GW_USERS} differ")
+    del gw, hit, miss
+    torch.cuda.empty_cache()
+    compare_gateway_fp32(dev, cfg, plat.injector, hit_users, now)
+    return launches
+
+
+# ----------------------------------------------------------------------
 # ssd_scan and the Mamba2 token path
 # ----------------------------------------------------------------------
 
@@ -1270,12 +1571,14 @@ def main() -> int:
     launches, plat, params, now = run_main_path(dev, gpu, report)
     check_decode_attention(dev, report)
     token_launches = run_token_path(dev, gpu, plat, params, now, report)
+    gateway_launches = run_gateway_path(dev, gpu, plat, params, now)
     check_ssd_scan(dev, report)
     ssm_launches = run_mamba2_path(dev, gpu, plat, now, report)
     missing = set(names) ^ set(report)
     if missing:
         raise SystemExit(f"kernels without a check: {sorted(missing)}")
-    for name, n in (*token_launches.items(), *ssm_launches.items()):
+    for name, n in (*token_launches.items(), *gateway_launches.items(),
+                    *ssm_launches.items()):
         launches[name] = launches.get(name, 0) + n
     kernels = [dict(report[n], launches=launches[n]) for n in names]
     print(json.dumps({"kernels": kernels}))

@@ -11,6 +11,21 @@ Runs the three-phase request path on seeded random histories:
 and prints each phase's time, cold (first call) and warm, showing that
 injection costs O(suffix) rather than O(history). Times end in a device
 synchronise.
+
+``--loop`` instead drives the request-level Gateway (feature stores ->
+injector -> host prefill-state LRU -> engine behind the micro-batching
+scheduler) with a deterministic seeded request trace: arrivals trickle in
+one at a time (``gateway.submit``), feedback events ride along between
+them (``gateway.observe``), panes flush on pane-full or deadline, and
+served results are claimed off the streaming surface (``gateway.drain``).
+It prints per-round throughput and the gateway's telemetry summary:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch itfi-ranker \
+      --reduced --device cpu --loop --users 200 --rounds 4 \
+      [--roll-midway] [--build-budget N] [--rewarm N] [--max-wait SECS]
+
+The paged state pool (``--pool``), per-request A/B arms (``--ab``) and
+the device mesh (``--mesh``) are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -24,6 +39,115 @@ from repro_torch.configs.base import get_config, reduced
 from repro_torch.models.common import resolve_device
 from repro_torch.models.model import init_params
 from repro_torch.serving.engine import ServingConfig, ServingEngine
+
+DAY = 86400
+UNPORTED = {
+    "pool": "the paged device state pool (ROADMAP.md, queue 1, item 2)",
+    "ab": "core/ab.py's arm policies (ROADMAP.md, queue 1, item 6)",
+    "mesh": "the device mesh (ROADMAP.md, queue 1, item 9)",
+}
+
+
+def run_loop(cfg, params, args, device) -> None:
+    """Deterministic seeded request trace through the Gateway:
+    per-request arrivals interleaved with feedback events, pane-full and
+    deadline flushes, and optionally a generation rollover midway."""
+    from repro_torch.core import (BatchFeatureStore, FeatureInjector,
+                                  FeatureStoreConfig, InjectionConfig,
+                                  RealtimeConfig, RealtimeFeatureService)
+    from repro_torch.serving import Gateway, Request, ServerConfig
+
+    n_users, n_items = args.users, cfg.vocab_size - 256
+    feature_len = min(args.history, 64)
+    eng = ServingEngine(cfg, params, ServingConfig(
+        max_batch=args.batch, prefill_len=args.history,
+        inject_len=args.fresh,
+        cache_capacity=args.history + args.fresh + 64), device=device)
+    rng = np.random.RandomState(args.seed)
+
+    store = BatchFeatureStore(FeatureStoreConfig(
+        n_users=n_users, feature_len=feature_len))
+    rts = RealtimeFeatureService(RealtimeConfig(
+        n_users=n_users, buffer_len=16, ingest_latency=0))
+    n_ev = n_users * 16
+    us = rng.randint(0, n_users, n_ev)
+    its = rng.randint(0, n_items, n_ev)
+    tss = rng.randint(0, 5 * DAY, n_ev)
+    store.extend(us, its, tss)
+    rts.extend(us, its, tss)
+    inj = FeatureInjector(InjectionConfig(
+        policy=args.policy, feature_len=feature_len), store, rts,
+        device=device)
+    gw = Gateway(eng, inj, ServerConfig(
+        slate_len=4, cache_entries=n_users, max_wait=args.max_wait,
+        snapshot_build_budget=args.build_budget,
+        rewarm_budget=args.rewarm))
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    now = 5 * DAY + 100
+    t0 = time.perf_counter()
+    warmed = gw.warm(np.arange(n_users), now)
+    sync()
+    print(f"warm: {warmed} prefill states in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    deadline = args.batch * 2  # seconds an arrival may wait in the queue
+    per_round = args.batch * 4
+    for r in range(args.rounds):
+        tickets = []
+        t0 = time.perf_counter()
+        for _ in range(per_round):
+            # the trace interleaves arrivals with feedback events
+            # (~1 event per 4 requests), all from one seeded stream
+            if rng.rand() < 0.25:
+                gw.observe((int(rng.randint(0, n_users)),
+                            int(rng.randint(0, n_items)), now - 30))
+            u = int(rng.randint(0, n_users))
+            tickets.append(gw.submit(Request(user=u, now=now,
+                                             deadline=now + deadline)))
+            now += 1  # one arrival per second
+        served = gw.drain(now + deadline)  # tail deadline fires + claim
+        sync()
+        dt = time.perf_counter() - t0
+        if not all(t.done for t in tickets) or not \
+                {t.request_id for t in served} >= {t.request_id
+                                                  for t in tickets}:
+            raise SystemExit(f"round {r}: a request was not served")
+        hits = sum(t.response.telemetry.cache_hit for t in tickets)
+        qd = np.array([t.response.telemetry.queue_delay for t in tickets])
+        print(f"round {r}: {len(tickets)} reqs in {dt * 1e3:6.1f} ms "
+              f"({len(tickets) / dt:7.1f} req/s) hits={hits} "
+              f"queue-delay p50={np.percentile(qd, 50):.0f}s "
+              f"max={qd.max()}s slate[0]="
+              f"{tickets[0].response.slate.tolist()}")
+        # the next round's arrivals must not be stamped behind the clock
+        # the tail flush advanced to (now + deadline)
+        now += max(60, deadline)
+        if args.roll_midway and r == args.rounds // 2 - 1:
+            # jump the clock past the next daily boundary so the second
+            # half of the trace serves across a generation rollover
+            now = ((now // DAY) + 1) * DAY + 100
+            gw.tick(now)
+            ro = gw.stats().rollover
+            print(f"-- generation rollover at {now}: rekeyed={ro.rekeyed} "
+                  f"invalidated={ro.invalidated} "
+                  f"pending_build={ro.pending_build_users} "
+                  f"pending_rewarm={ro.pending_rewarm}")
+
+    st = gw.stats()
+    print(f"telemetry: paths={st.paths} "
+          f"queue_delay p50={st.queue_delay['p50']:.0f}s "
+          f"p99={st.queue_delay['p99']:.0f}s "
+          f"deadline_flushes={st.deadline_flushes} panes={st.panes}")
+    ro = st.rollover
+    print(f"rollover: rollovers={ro.rollovers} rekeyed={ro.rekeyed} "
+          f"invalidated={ro.invalidated} rebuilt={ro.rebuilt} "
+          f"build_steps={ro.build_steps} "
+          f"build_time={ro.build_time_s * 1e3:.1f}ms")
+    print(f"stats: {st.as_dict()}")
 
 
 def main(argv=None) -> None:
@@ -39,7 +163,34 @@ def main(argv=None) -> None:
                     help="padded fresh-suffix length (inject)")
     ap.add_argument("--decode-steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--loop", action="store_true",
+                    help="drive the request-level Gateway with a seeded trace")
+    ap.add_argument("--users", type=int, default=200)
+    ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--policy", default="inject",
+                    choices=["batch", "inject", "fresh"])
+    ap.add_argument("--roll-midway", action="store_true",
+                    help="--loop: jump the clock past a daily boundary "
+                         "halfway through the trace (warm handoff)")
+    ap.add_argument("--build-budget", type=int, default=None,
+                    help="--loop: at most this many users materialised per "
+                         "clock call by the snapshot build")
+    ap.add_argument("--rewarm", type=int, default=0,
+                    help="--loop: re-prefill up to this many "
+                         "rollover-invalidated users per tick")
+    ap.add_argument("--max-wait", type=int, default=None, metavar="SECS",
+                    help="--loop: continuous batching; flush a partial pane "
+                         "once its oldest arrival has waited this long")
+    ap.add_argument("--pool", type=int, default=None, metavar="SLOTS",
+                    help="not ported: " + UNPORTED["pool"])
+    ap.add_argument("--ab", action="store_true",
+                    help="not ported: " + UNPORTED["ab"])
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="not ported: " + UNPORTED["mesh"])
     args = ap.parse_args(argv)
+    for name, what in UNPORTED.items():
+        if getattr(args, name) not in (None, False):
+            ap.error(f"--{name} needs {what}, which is not ported yet")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -47,6 +198,9 @@ def main(argv=None) -> None:
         cfg = reduced(cfg)
     params = init_params(cfg, torch.Generator().manual_seed(args.seed),
                          torch.float32, device)
+    if args.loop:
+        run_loop(cfg, params, args, device)
+        return
     scfg = ServingConfig(max_batch=args.batch, prefill_len=args.history,
                          inject_len=args.fresh,
                          cache_capacity=args.history + args.fresh + 64)

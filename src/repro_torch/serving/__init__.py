@@ -1,2 +1,28 @@
-"""Token-level serving: the engine's prefill, inject and decode."""
-from repro_torch.serving.engine import ServingConfig, ServingEngine  # noqa: F401
+"""Public serving surface.
+
+The one serving facade is the :class:`Gateway` (submit/poll streaming
+lifecycle over typed Requests) over the token-level
+:class:`ServingEngine`; :class:`InjectionServer` is the deprecated
+wave-era shim kept for bitwise-compat callers.
+"""
+from repro_torch.serving.api import (  # noqa: F401
+    Event, GatewayStats, Request, RequestTelemetry, Response,
+    RolloverStats, Ticket, as_event, assign_arms, hash_arm)
+from repro_torch.serving.engine import (  # noqa: F401
+    ServingConfig, ServingEngine)
+from repro_torch.serving.scheduler import (  # noqa: F401
+    Gateway, PrefillStateCache, ServerConfig)
+from repro_torch.serving.loop import (  # noqa: F401
+    InjectionServer, ServeResult)
+
+__all__ = [
+    # request-level API (serving/api.py)
+    "Event", "Request", "Response", "RequestTelemetry", "Ticket",
+    "GatewayStats", "RolloverStats", "as_event", "hash_arm", "assign_arms",
+    # engine (serving/engine.py)
+    "ServingConfig", "ServingEngine",
+    # scheduler / facade (serving/scheduler.py)
+    "Gateway", "ServerConfig", "PrefillStateCache",
+    # deprecated wave shim (serving/loop.py)
+    "InjectionServer", "ServeResult",
+]

@@ -61,6 +61,8 @@ class ServingEngine:
         self.scfg = scfg
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
+        # one device: a pane is one shard (the Gateway's per-shard bytes)
+        self.data_shards = 1
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         if isinstance(x, np.ndarray) and not x.flags.writeable:
@@ -103,16 +105,19 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def prefill(self, tokens, valid) -> Dict[str, Any]:
+    def prefill(self, tokens, valid, logits_last_only: bool = False,
+                ) -> Dict[str, Any]:
         """Materialise the batch-history state (the daily-job analogue).
 
         Positions index the padded buffer (real tokens right-aligned), so
         later inject and decode positions continue at the buffer length.
         ``logits`` are the full (B, S, Vp) f32 logits, as in the JAX
-        package; callers read ``[:, -1]``."""
+        package, or only the last position's (B, 1, Vp) with
+        ``logits_last_only``; callers read ``[:, -1]`` either way."""
         tokens = self._tensor(tokens, torch.int32)
         valid = self._tensor(valid, torch.bool)
-        logits, caches = prefill(self.params, self.cfg, tokens, valid=valid)
+        logits, caches = prefill(self.params, self.cfg, tokens, valid=valid,
+                                 logits_last_only=logits_last_only)
         b, s = tokens.shape
         return {"caches": caches, "valid": valid,
                 # right-aligned prefill: every row's next position is S

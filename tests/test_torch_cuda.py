@@ -365,3 +365,51 @@ def test_ssd_scan_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         ssd_scan(xs, torch.zeros((1, 512, 4), device=cuda), A, bs, bs, D,
                  chunk=512)
+
+
+def test_gateway_cuda_matches_cpu(cuda):
+    """The port's Gateway on the card against the same Gateway on the CPU,
+    tiny width, fp32, over a warm pass, a hit wave (inject from the host
+    LRU) and a miss wave (prefill): equal paths and slates, first logits
+    within 1e-4; the card's panes launch the two attention kernels."""
+    from repro_torch.configs import ModelConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import (Gateway, Request, ServerConfig,
+                                     ServingConfig, ServingEngine)
+    from torch_port import make_injector
+
+    from conftest import DAY, N_ITEMS
+    cfg = ModelConfig(name="tiny-test", family="dense", n_layers=2,
+                      d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                      vocab_size=N_ITEMS + 256, rope_theta=1e4,
+                      tie_embeddings=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    scfg = ServingConfig(max_batch=4, prefill_len=32, inject_len=8,
+                         cache_capacity=64)
+    now = 5 * DAY + 100
+    out = {}
+    for dev in ("cpu", cuda):
+        gw = Gateway(ServingEngine(cfg, params, scfg, device=dev),
+                     make_injector("repro_torch", device=dev),
+                     ServerConfig(slate_len=3, cache_entries=64))
+        gw.observe_many(np.arange(16), np.arange(16) + 7,
+                        np.full(16, now - 20))
+        flash_attention.launches = decode_attention.launches = 0
+        assert gw.warm(np.arange(8), now) == 8
+        tickets = []
+        for users in (np.arange(8), np.arange(8, 16)):
+            tickets += gw.submit_many([Request(user=int(u), now=now)
+                                       for u in users])
+            gw.flush(now)
+        out[str(dev)] = (tickets, flash_attention.launches,
+                         decode_attention.launches)
+    (cpu, _, _), (gpu, fa, da) = out["cpu"], out[str(cuda)]
+    assert fa > 0 and da > 0
+    assert [t.response.telemetry.path for t in gpu] == \
+        ["inject"] * 8 + ["prefill"] * 8
+    for c, g in zip(cpu, gpu):
+        assert g.response.telemetry.path == c.response.telemetry.path
+        np.testing.assert_array_equal(g.response.slate, c.response.slate)
+        np.testing.assert_allclose(g.response.scores, c.response.scores,
+                                   atol=1e-4, rtol=1e-4)
