@@ -27,16 +27,20 @@
    step, and times the phases, the kernels at the path's own inputs and
    one profiled pane;
 8. drives the request-level Gateway over the same engine shapes and
-   feature plane (``ServerConfig(slate_len=10, cache_entries=2048)``):
-   ``warm`` admits 1024 users with fresh events to the host prefill-state
-   LRU (4 prefill panes), a hit wave of the same users must be served
-   every row from the LRU on the inject path, and a miss wave of 1024
-   other users on the prefill path; each wave's panes are timed by phase
-   and its kernel launches counted. At fp32 a 64-row Gateway's hit-path
-   first logits must be within 1e-4 of the engine's direct prefill ->
-   inject -> decode_slate on the same rows and clock, with equal slates
-   (a row that differs must be a tie within 1e-4); in bf16 the differing
-   slates are counted;
+   feature plane, four times, from the host prefill-state LRU
+   (``ServerConfig(slate_len=10, cache_entries=2048)``) and from the
+   paged device state pool (``pool_slots=2048``) in the order LRU, pool,
+   pool, LRU: ``warm`` admits 1024 users with fresh events (4 prefill
+   panes), a hit wave of the same users must be served every row from
+   the cache on the inject path, and a miss wave of 1024 other users on
+   the prefill path; each wave's panes are timed by phase (the LRU's host
+   copies and concats, or the pool's gather and scatter) and its kernel
+   launches counted, and every run's responses must be bit for bit the
+   first run's. At fp32 a 64-row Gateway's hit-path first logits must be
+   within 1e-4 of the engine's direct prefill -> inject -> decode_slate
+   on the same rows and clock, with equal slates (a row that differs
+   must be a tie within 1e-4), and bit-equal from the pool; in bf16 the
+   differing slates are counted;
 9. holds ``ssd_scan`` against its plain version in bf16 and fp32 at the
    prefill and inject shapes of the registered ``mamba2-780m``, with
    padded rows and a random initial state, and at its prefill shape with
@@ -45,9 +49,17 @@
    at full width (48 SSM layers, bf16 weights from a seed) in 4 panes of
    64 users from the same feature plane, counting ``ssd_scan`` launches
    (48 in prefill and 48 in inject a pane), then times the kernel at the
-   path's own inputs and at a fully live prefill, and one profiled pane, and compares the kernel path
-   with the plain path at fp32 on a pane of 16 rows (prefill, inject and
-   every teacher-forced decode step's logits within 1e-4, equal slates).
+   path's own inputs and at a fully live prefill, and one profiled pane,
+   and compares the kernel path with the plain path at fp32 on a pane of
+   16 rows (prefill, inject and every teacher-forced decode step's logits
+   within 1e-4, equal slates);
+11. drives the same full-width ``mamba2-780m`` behind a Gateway that
+   serves from a paged state pool of 256 slots (~19.6 GB on the card),
+   panes of 64: ``warm`` 256 users, a hit wave of them through inject
+   from the pool, a miss wave of 256 others that evicts under slot
+   pressure, each timed by phase with its ``ssd_scan`` launches counted;
+   the bf16 hit slates must equal the engine's direct prefill -> inject
+   -> decode_slate on the same users.
 
 It needs a CUDA device: without one it exits non-zero and prints no result.
 The line before the last is the card's name and power limit; the last line
@@ -80,8 +92,11 @@ N_PANES, SLATE_LEN = 4, 10
 # the Mamba2 path's panes: 64 rows, as each row's f32 SSM state is 48 x 48
 # x 64 x 128 x 4 B = 75.5 MB; the fp32 comparison on a smaller pane
 MAMBA_BATCH, MAMBA_FP32_ROWS = 64, 16
-# the Gateway phase: users a wave, the host LRU's entry budget, fp32 pane
+# the Gateway phase: users a wave, the host LRU's entry budget (the pool's
+# slots), fp32 pane
 GW_USERS, GW_CACHE_ENTRIES, GW_FP32_ROWS = 1024, 2048, 64
+# the pooled Mamba2 Gateway: users a wave, slots (256 x ~77 MB = ~19.6 GB)
+MAMBA_GW_USERS, MAMBA_POOL_SLOTS = 256, 256
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int32": 67e12}
 TOL = {"bfloat16": 3e-2, "float32": 2e-5}    # as tests/test_kernels.py
@@ -998,12 +1013,19 @@ class PhaseClock:
 
     def patches(self, gw):
         """The patches that time a Gateway's phases: pane assembly (host
-        concats and host->device copies), the engine's prefill, inject
-        and decode_slate, the device->host copy of a prefill state and
-        the slicing of its rows into LRU entries."""
+        concats and host->device copies, or the pool's gather), the
+        engine's prefill, inject and decode_slate, the device->host copy
+        of a prefill state and the slicing of its rows into LRU entries,
+        or the pool's scatter."""
         from repro_torch.serving import scheduler as scheduler_mod
         eng = gw.engine
-        return [
+        pool = [] if gw.pool is None else [
+            mock.patch.object(gw.pool, "gather",
+                              self.wrap("pool gather", gw.pool.gather)),
+            mock.patch.object(gw.pool, "scatter",
+                              self.wrap("pool scatter", gw.pool.scatter)),
+        ]
+        return pool + [
             mock.patch.object(scheduler_mod, "_cat_rows",
                               self.wrap("assembly", scheduler_mod._cat_rows)),
             mock.patch.object(scheduler_mod, "_join",
@@ -1032,29 +1054,39 @@ def fresh_users(injector, now, rng, n, exclude=()):
     return keep
 
 
-def gateway_wave(gw, users, now, label, gpu, clock=None):
-    """``submit_many`` + ``flush`` of ``users`` at ``now``; returns the
-    tickets, the wave's launches, its host-clock seconds (ending in a
-    device synchronise) and the cache counters' change."""
-    import torch
+def kernel_ops(names):
+    """{name: the kernel's wrapper} for the launch counters."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    ops = {"flash_attention": flash_attention,
+           "decode_attention": decode_attention, "ssd_scan": ssd_scan}
+    return {n: ops[n] for n in names}
+
+
+def gateway_wave(gw, users, now, label, gpu, clock=None,
+                 kernels=("flash_attention", "decode_attention")):
+    """``submit_many`` + ``flush`` of ``users`` at ``now``; returns the
+    tickets, the wave's launches of ``kernels``, its host-clock seconds
+    (ending in a device synchronise) and the cache counters' change."""
+    import torch
     from repro_torch.serving import Request
 
+    ops = kernel_ops(kernels)
     c0 = dict(gw.cache.stats())
     with contextlib.ExitStack() as stack:
         for patch in (clock.patches(gw) if clock is not None else []):
             stack.enter_context(patch)
         torch.cuda.synchronize()
-        flash_attention.launches = decode_attention.launches = 0
+        for op in ops.values():
+            op.launches = 0
         t0 = time.perf_counter()
         tickets = gw.submit_many([Request(user=int(u), now=now)
                                   for u in users])
         gw.flush(now)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        launches = {"flash_attention": flash_attention.launches,
-                    "decode_attention": decode_attention.launches}
+        launches = {n: op.launches for n, op in ops.items()}
     c1 = gw.cache.stats()
     delta = {k: c1[k] - c0[k] for k in ("hits", "misses", "evictions")}
     panes = -(-len(users) // gw.engine.scfg.max_batch)
@@ -1067,10 +1099,48 @@ def gateway_wave(gw, users, now, label, gpu, clock=None):
         other = elapsed * 1e3 - sum(clock.ms.values())
         print(f"gateway {label} wave ms per pane by phase: " + ", ".join(
             f"{k} {v / panes:.3f}" for k, v in clock.ms.items())
-            + f", the rest of the host (features, suffixes, LRU, "
-            f"telemetry) {other / panes:.3f} (host clock, synchronised) "
-            f"[{gpu}]")
+            + f", the rest of the host (features, suffixes, "
+            f"{'slot table' if gw.pool is not None else 'LRU'}, telemetry) "
+            f"{other / panes:.3f} (host clock, synchronised) [{gpu}]")
     return tickets, launches, elapsed, delta
+
+
+def gateway_warm(gw, users, now, label, gpu, kernels):
+    """``gw.warm(users, now)`` timed by phase; returns its launches of
+    ``kernels``, the first of which prefill must launch."""
+    import torch
+
+    ops = kernel_ops(kernels)
+    clock = PhaseClock()
+    with contextlib.ExitStack() as stack:
+        for patch in clock.patches(gw):
+            stack.enter_context(patch)
+        torch.cuda.synchronize()
+        for op in ops.values():
+            op.launches = 0
+        t0 = time.perf_counter()
+        warmed = gw.warm(users, now)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    launches = {n: op.launches for n, op in ops.items()}
+    panes = -(-len(users) // gw.engine.scfg.max_batch)
+    where = (f"pool {gw.pool.n_slots} slots, "
+             f"{gw.pool.n_slots * gw.pool.slot_nbytes / 1e9:.3f} GB on the "
+             f"card, {len(gw.cache)} entries" if gw.pool is not None else
+             f"LRU {len(gw.cache)} entries, "
+             f"{gw.cache.bytes_per_shard / 1e9:.3f} GB on the host")
+    print(f"gateway {label} warm: {warmed} states admitted in "
+          f"{gw.stats().prefill_calls} prefill panes, "
+          f"{warm_s / panes * 1e3:.2f} ms per pane (host clock); by phase "
+          f"per pane: " + ", ".join(f"{k} {v / panes:.3f}"
+                                    for k, v in clock.ms.items())
+          + f"; {where} ({gw.cache.bytes_per_shard / len(gw.cache) / 1e6:.3f}"
+          f" MB an entry); launches {launches} [{gpu}]")
+    prefill_kernel = kernels[0]
+    if warmed != len(users) or launches[prefill_kernel] <= 0:
+        raise SystemExit(f"gateway {label} warm: {warmed} admitted, "
+                         f"launches {launches}")
+    return launches
 
 
 def check_gateway_slates(tickets, vocab, label):
@@ -1104,29 +1174,32 @@ def pick_gaps(eng, state, slate_len=SLATE_LEN):
     return torch.stack(gaps, 1)
 
 
-def compare_gateway_fp32(dev, cfg, injector, users, now):
+def compare_gateway_fp32(dev, cfg, injector, users, now, pool=False):
     """A 64-row fp32 Gateway's hit path against the engine's direct
     prefill -> inject -> decode_slate on the same rows and clock: first
     logits within 1e-4, equal slates except on a row whose picks tie
-    within 1e-4."""
+    within 1e-4. With ``pool`` the Gateway serves from the paged state
+    pool and must be bit-equal: 0 error and 0 slates differing."""
     import torch
     from repro_torch.models.model import init_params
-    from repro_torch.serving import (Gateway, Request, ServerConfig,
-                                     ServingConfig, ServingEngine)
+    from repro_torch.serving import (Gateway, Request, ServingConfig,
+                                     ServingEngine)
 
     params = init_params(cfg, torch.Generator().manual_seed(SEED),
                          torch.float32, dev)
     eng = ServingEngine(cfg, params, ServingConfig(
         max_batch=GW_FP32_ROWS, prefill_len=PANE_PREFILL,
         inject_len=PANE_INJECT, cache_capacity=PANE_CAPACITY), device=dev)
-    gw = Gateway(eng, injector, ServerConfig(slate_len=SLATE_LEN,
-                                             cache_entries=GW_FP32_ROWS))
+    gw = Gateway(eng, injector, gateway_config(
+        "pool" if pool else "host LRU", GW_FP32_ROWS))
+    label = "pooled" if pool else "host-LRU"
     users = users[:GW_FP32_ROWS]
     gw.warm(users, now)
     tickets = gw.submit_many([Request(user=int(u), now=now) for u in users])
     gw.flush(now)
     if any(t.response.telemetry.path != "inject" for t in tickets):
-        raise SystemExit("fp32 gateway: a warmed row left the inject path")
+        raise SystemExit(f"fp32 {label} gateway: a warmed row left the "
+                         f"inject path")
     state, slate = serve_pane(eng, *pane_inputs(eng, injector, users, now))
     want = state["first_logits"]
     got = torch.from_numpy(np.stack([t.response.scores for t in tickets]))
@@ -1136,101 +1209,132 @@ def compare_gateway_fp32(dev, cfg, injector, users, now):
     flipped = np.flatnonzero((got_slate != slate).any(1))
     gaps = pick_gaps(eng, state)[torch.as_tensor(flipped, device=dev)]
     min_gap = gaps.min(1).values.tolist() if len(flipped) else []
-    print(f"fp32 gateway hit path vs the engine's prefill -> inject -> "
-          f"decode_slate, {len(users)} rows: first logits max abs err "
-          f"{err:.3g} (tolerance {E2E_TOL}), {len(flipped)} slates differ; "
-          f"smallest top-2 gap of each differing row: "
+    print(f"fp32 {label} gateway hit path vs the engine's prefill -> inject "
+          f"-> decode_slate, {len(users)} rows: first logits max abs err "
+          f"{err:.3g} (tolerance {0 if pool else E2E_TOL}), {len(flipped)} "
+          f"slates differ; smallest top-2 gap of each differing row: "
           f"{[f'{x:.3g}' for x in min_gap]}")
+    if pool and (err != 0 or len(flipped)):
+        raise SystemExit("fp32 pooled gateway: the hit path is not "
+                         "bit-equal to the engine's direct path")
     if any(g > E2E_TOL for g in min_gap):
         raise SystemExit("fp32 gateway: a slate differs on a row whose "
                          "picks are separated by more than the tolerance")
 
 
-def run_gateway_path(dev, gpu, plat, params, now):
-    """The request-level Gateway at full width: warm, a hit wave served
-    from the host LRU through inject, a miss wave through prefill."""
+GW_BACKENDS = ("host LRU", "pool", "pool", "host LRU")
+
+
+def gateway_config(backend, entries):
+    """``ServerConfig`` of a Gateway that caches ``entries`` prefill
+    states in the host LRU or (``backend == "pool"``) the state pool."""
+    from repro_torch.serving import ServerConfig
+    budget = ({"pool_slots": entries} if backend == "pool"
+              else {"cache_entries": entries})
+    return ServerConfig(slate_len=SLATE_LEN, **budget)
+
+
+def gateway_backend(eng, injector, backend, hit_users, miss_users, now,
+                    gpu):
+    """One Gateway over ``eng`` from ``backend`` ("host LRU" or "pool",
+    each with GW_CACHE_ENTRIES entries): warm the hit users, a hit wave
+    that must be all hits on the inject path, the same wave again, and a
+    miss wave that must be all prefills. Returns (hit tickets, miss
+    tickets, the launches of the timed warm, hit and miss)."""
     import torch
-    from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.serving import (Gateway, ServerConfig, ServingConfig,
-                                     ServingEngine)
+    from repro_torch.serving import Gateway
+
+    gw = Gateway(eng, injector, gateway_config(backend, GW_CACHE_ENTRIES))
+    kernels = ("flash_attention", "decode_attention")
+    launches = gateway_warm(gw, hit_users, now, backend, gpu, kernels)
+    hit, hit_launches, _, hit_delta = gateway_wave(
+        gw, hit_users, now, f"{backend} hit", gpu, clock=PhaseClock())
+    paths = {t.response.telemetry.path for t in hit}
+    st = gw.stats()
+    print(f"gateway {backend} hit wave: hit rate "
+          f"{hit_delta['hits'] / len(hit_users):.3f}, paths {sorted(paths)}; "
+          f"stats paths {st.paths}, prefill_calls {st.prefill_calls}, "
+          f"inject_calls {st.inject_calls}")
+    if hit_delta["hits"] != len(hit_users) or paths != {"inject"} \
+            or not all(t.response.telemetry.cache_hit for t in hit):
+        raise SystemExit(f"gateway {backend} hit wave: a row was not a hit "
+                         f"on the inject path")
+    gateway_wave(gw, hit_users, now, f"{backend} hit (again)", gpu)
+    miss, miss_launches, _, miss_delta = gateway_wave(
+        gw, miss_users, now, f"{backend} miss", gpu, clock=PhaseClock())
+    paths = {t.response.telemetry.path for t in miss}
+    print(f"gateway {backend} miss wave: hit rate "
+          f"{miss_delta['hits'] / len(miss_users):.3f}, paths "
+          f"{sorted(paths)}; stats {gw.stats().paths}")
+    if paths != {"prefill"} or miss_delta["misses"] != len(miss_users):
+        raise SystemExit(f"gateway {backend} miss wave: a row was not on "
+                         f"the prefill path")
+    for name, n in (("hit", hit_launches), ("miss", miss_launches)):
+        if min(n.values()) <= 0:
+            raise SystemExit(f"gateway {backend} {name} wave: a kernel never "
+                             f"launched: {n}")
+        for k, v in n.items():
+            launches[k] += v
+    if gw.pool is not None:
+        print(f"gateway pool: {gw.pool.n_slots} slots of "
+              f"{gw.pool.slot_nbytes / 1e6:.3f} MB, "
+              f"{gw.pool.n_slots * gw.pool.slot_nbytes / 1e9:.3f} GB on the "
+              f"card; gathers {gw.pool.gathers}, scatters "
+              f"{gw.pool.scatters}; cache {gw.cache.stats()}; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+              f"[{gpu}]")
+    return hit, miss, launches
+
+
+def run_gateway_path(dev, gpu, plat, params, now, backends=GW_BACKENDS):
+    """The request-level Gateway at full width, from each of ``backends``
+    in turn (the host LRU and the paged state pool, interleaved): warm, a
+    hit wave through inject, a miss wave through prefill. Every backend's
+    responses must be bit for bit the first one's."""
+    import torch
+    from repro_torch.serving import Gateway, ServingConfig, ServingEngine
 
     cfg = plat.model_cfg
     eng = ServingEngine(cfg, params, ServingConfig(
         max_batch=SERVE_BATCH, prefill_len=PANE_PREFILL,
         inject_len=PANE_INJECT, cache_capacity=PANE_CAPACITY), device=dev)
-    gw = Gateway(eng, plat.injector, ServerConfig(
-        slate_len=SLATE_LEN, cache_entries=GW_CACHE_ENTRIES))
     rng = np.random.RandomState(SEED + 3)
     hit_users = fresh_users(plat.injector, now, rng, GW_USERS)
     miss_users = fresh_users(plat.injector, now, rng, GW_USERS,
                              exclude=hit_users)
-    # warm-up on users outside both waves, one pane (allocator, pinned
-    # host blocks), then a fresh Gateway so the waves start from zero
+    # warm-up on users outside both waves, one pane from each backend
+    # (allocator, pinned host blocks), then fresh Gateways for the runs
     spare = fresh_users(plat.injector, now, rng, SERVE_BATCH,
                         exclude=np.concatenate([hit_users, miss_users]))
-    gateway_wave(gw, spare, now, "warm-up", gpu)
-    gw = Gateway(eng, plat.injector, ServerConfig(
-        slate_len=SLATE_LEN, cache_entries=GW_CACHE_ENTRIES))
+    for backend in sorted(set(backends)):
+        gw = Gateway(eng, plat.injector,
+                     gateway_config(backend, GW_CACHE_ENTRIES))
+        gateway_wave(gw, spare, now, f"{backend} warm-up", gpu)
+        del gw
+        torch.cuda.empty_cache()
 
     launches = {"flash_attention": 0, "decode_attention": 0}
-    clock = PhaseClock()
-    with contextlib.ExitStack() as stack:
-        for patch in clock.patches(gw):
-            stack.enter_context(patch)
-        torch.cuda.synchronize()
-        flash_attention.launches = decode_attention.launches = 0
-        t0 = time.perf_counter()
-        warmed = gw.warm(hit_users, now)
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-    warm_launches = {"flash_attention": flash_attention.launches,
-                     "decode_attention": decode_attention.launches}
-    panes = GW_USERS // SERVE_BATCH
-    st = gw.stats()
-    print(f"gateway warm: {warmed} states admitted in {st.prefill_calls} "
-          f"prefill panes, {warm_s / panes * 1e3:.2f} ms per pane (host "
-          f"clock); by phase per pane: " + ", ".join(
-              f"{k} {v / panes:.3f}" for k, v in clock.ms.items())
-          + f"; LRU {len(gw.cache)} entries, "
-          f"{gw.cache.bytes_per_shard / 1e9:.3f} GB on the host "
-          f"({gw.cache.bytes_per_shard / len(gw.cache) / 1e6:.3f} MB an "
-          f"entry); launches {warm_launches} [{gpu}]")
-    if warmed != GW_USERS or warm_launches["flash_attention"] <= 0:
-        raise SystemExit(f"gateway warm: {warmed} admitted, launches "
-                         f"{warm_launches}")
-
-    hit, hit_launches, _, hit_delta = gateway_wave(
-        gw, hit_users, now, "hit", gpu, clock=PhaseClock())
-    paths = {t.response.telemetry.path for t in hit}
-    hit_rate = hit_delta["hits"] / GW_USERS
-    st = gw.stats()
-    print(f"gateway hit wave: hit rate {hit_rate:.3f}, paths {sorted(paths)}; "
-          f"stats paths {st.paths}, prefill_calls {st.prefill_calls}, "
-          f"inject_calls {st.inject_calls}")
-    if hit_rate != 1.0 or paths != {"inject"} \
-            or not all(t.response.telemetry.cache_hit for t in hit):
-        raise SystemExit("gateway hit wave: a row was not a hit on the "
-                         "inject path")
-    gateway_wave(gw, hit_users, now, "hit (again)", gpu)
-
-    miss, miss_launches, _, miss_delta = gateway_wave(
-        gw, miss_users, now, "miss", gpu, clock=PhaseClock())
-    paths = {t.response.telemetry.path for t in miss}
-    print(f"gateway miss wave: hit rate {miss_delta['hits'] / GW_USERS:.3f}, "
-          f"paths {sorted(paths)}; stats {gw.stats().paths}")
-    if paths != {"prefill"} or miss_delta["misses"] != GW_USERS:
-        raise SystemExit("gateway miss wave: a row was not on the prefill "
-                         "path")
-    for name, n in (("warm", warm_launches), ("hit", hit_launches),
-                    ("miss", miss_launches)):
-        if name != "warm" and min(n.values()) <= 0:
-            raise SystemExit(f"gateway {name} wave: a kernel never "
-                             f"launched: {n}")
+    runs = []
+    for backend in backends:
+        torch.cuda.reset_peak_memory_stats(dev)
+        hit, miss, n = gateway_backend(eng, plat.injector, backend,
+                                       hit_users, miss_users, now, gpu)
         for k, v in n.items():
             launches[k] += v
+        runs.append((backend, hit, miss))
+        torch.cuda.empty_cache()
+    first, hit, miss = runs[0]
     check_gateway_slates(hit, cfg.vocab_size, "hit")
     check_gateway_slates(miss, cfg.vocab_size, "miss")
+    for backend, h, m in runs[1:]:
+        for a, b in zip(h + m, hit + miss):
+            if not (np.array_equal(a.response.slate, b.response.slate)
+                    and np.array_equal(a.response.scores,
+                                       b.response.scores)):
+                raise SystemExit(f"gateway {backend}: a response differs "
+                                 f"from the {first} run's")
+    print(f"gateway backends {list(backends)}: every response (slate and "
+          f"scores, hit and miss waves) bit for bit the {first} run's")
 
     # bf16: the Gateway's hit slates against the engine's direct path
     differ = 0
@@ -1243,9 +1347,11 @@ def run_gateway_path(dev, gpu, plat, params, now):
     print(f"bf16 gateway hit slates vs the engine's direct prefill -> "
           f"inject -> decode_slate on the same rows: {differ} of "
           f"{GW_USERS} differ")
-    del gw, hit, miss
+    del runs, hit, miss
     torch.cuda.empty_cache()
-    compare_gateway_fp32(dev, cfg, plat.injector, hit_users, now)
+    for pool in sorted({b == "pool" for b in backends}):
+        compare_gateway_fp32(dev, cfg, plat.injector, hit_users, now,
+                             pool=pool)
     return launches
 
 
@@ -1538,6 +1644,87 @@ def run_mamba2_path(dev, gpu, plat, now, report):
     return launches
 
 
+def run_mamba2_gateway(dev, gpu, plat, now):
+    """The registered mamba2-780m at full width (bf16 weights from the
+    seed) behind a Gateway that serves from the paged state pool: 256
+    slots of one row's prefill state (~77 MB each), panes of MAMBA_BATCH.
+    Warm 256 users, a hit wave of them (inject from the pool), a miss
+    wave of 256 others that evicts under slot pressure; each timed by
+    phase with its ssd_scan launches counted. The bf16 hit slates must
+    equal the engine's direct prefill -> inject -> decode_slate on the
+    same users and clock."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import Gateway, ServingConfig, ServingEngine
+
+    cfg = get_config("mamba2-780m")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         torch.bfloat16, dev)
+    eng = ServingEngine(cfg, params, ServingConfig(
+        max_batch=MAMBA_BATCH, prefill_len=PANE_PREFILL,
+        inject_len=PANE_INJECT, cache_capacity=PANE_CAPACITY), device=dev)
+    rng = np.random.RandomState(SEED + 4)
+    hit_users = fresh_users(plat.injector, now, rng, MAMBA_GW_USERS)
+    miss_users = fresh_users(plat.injector, now, rng, MAMBA_GW_USERS,
+                             exclude=hit_users)
+    gw = Gateway(eng, plat.injector,
+                 gateway_config("pool", MAMBA_POOL_SLOTS))
+    kernels = ("ssd_scan",)
+    panes = MAMBA_GW_USERS // MAMBA_BATCH
+    launches = gateway_warm(gw, hit_users, now, "mamba2 pool", gpu, kernels)
+    hit, hit_launches, _, hit_delta = gateway_wave(
+        gw, hit_users, now, "mamba2 pool hit", gpu, clock=PhaseClock(),
+        kernels=kernels)
+    paths = {t.response.telemetry.path for t in hit}
+    if hit_delta["hits"] != MAMBA_GW_USERS or paths != {"inject"}:
+        raise SystemExit(f"mamba2 gateway hit wave: {hit_delta}, paths "
+                         f"{sorted(paths)}")
+    miss, miss_launches, _, miss_delta = gateway_wave(
+        gw, miss_users, now, "mamba2 pool miss", gpu, clock=PhaseClock(),
+        kernels=kernels)
+    paths = {t.response.telemetry.path for t in miss}
+    if miss_delta["misses"] != MAMBA_GW_USERS or paths != {"prefill"} \
+            or miss_delta["evictions"] != MAMBA_GW_USERS:
+        raise SystemExit(f"mamba2 gateway miss wave: {miss_delta}, paths "
+                         f"{sorted(paths)}")
+    want = {"warm": cfg.n_layers * panes, "hit": cfg.n_layers * panes,
+            "miss": 2 * cfg.n_layers * panes}
+    got = {"warm": launches["ssd_scan"], "hit": hit_launches["ssd_scan"],
+           "miss": miss_launches["ssd_scan"]}
+    print(f"mamba2 gateway: ssd_scan launches {got} (expected {want}: "
+          f"{cfg.n_layers} a prefill, {cfg.n_layers} an inject); pool "
+          f"{gw.pool.n_slots} slots of {gw.pool.slot_nbytes / 1e6:.3f} MB, "
+          f"{gw.pool.n_slots * gw.pool.slot_nbytes / 1e9:.3f} GB on the "
+          f"card; gathers {gw.pool.gathers}, scatters {gw.pool.scatters}; "
+          f"cache {gw.cache.stats()}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB [{gpu}]")
+    if got != want:
+        raise SystemExit("mamba2 gateway: ssd_scan launches differ from "
+                         "the expected count")
+    check_gateway_slates(hit, cfg.vocab_size, "mamba2 hit")
+    check_gateway_slates(miss, cfg.vocab_size, "mamba2 miss")
+    differ = 0
+    for lo in range(0, MAMBA_GW_USERS, MAMBA_BATCH):
+        users = hit_users[lo:lo + MAMBA_BATCH]
+        _, slate = serve_pane(eng, *pane_inputs(eng, plat.injector, users,
+                                                now))
+        served = np.stack([t.response.slate
+                           for t in hit[lo:lo + MAMBA_BATCH]])
+        differ += int((served != slate).any(1).sum())
+    print(f"bf16 mamba2 pooled gateway hit slates vs the engine's direct "
+          f"prefill -> inject -> decode_slate on the same rows: {differ} of "
+          f"{MAMBA_GW_USERS} differ")
+    if differ:
+        raise SystemExit("mamba2 gateway: a hit slate differs from the "
+                         "engine's direct path")
+    del gw, eng, params, hit, miss
+    torch.cuda.empty_cache()
+    return {"ssd_scan": sum(got.values())}
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1574,11 +1761,12 @@ def main() -> int:
     gateway_launches = run_gateway_path(dev, gpu, plat, params, now)
     check_ssd_scan(dev, report)
     ssm_launches = run_mamba2_path(dev, gpu, plat, now, report)
+    ssm_gateway_launches = run_mamba2_gateway(dev, gpu, plat, now)
     missing = set(names) ^ set(report)
     if missing:
         raise SystemExit(f"kernels without a check: {sorted(missing)}")
     for name, n in (*token_launches.items(), *gateway_launches.items(),
-                    *ssm_launches.items()):
+                    *ssm_launches.items(), *ssm_gateway_launches.items()):
         launches[name] = launches.get(name, 0) + n
     kernels = [dict(report[n], launches=launches[n]) for n in names]
     print(json.dumps({"kernels": kernels}))

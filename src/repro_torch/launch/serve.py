@@ -13,19 +13,27 @@ injection costs O(suffix) rather than O(history). Times end in a device
 synchronise.
 
 ``--loop`` instead drives the request-level Gateway (feature stores ->
-injector -> host prefill-state LRU -> engine behind the micro-batching
-scheduler) with a deterministic seeded request trace: arrivals trickle in
-one at a time (``gateway.submit``), feedback events ride along between
-them (``gateway.observe``), panes flush on pane-full or deadline, and
-served results are claimed off the streaming surface (``gateway.drain``).
-It prints per-round throughput and the gateway's telemetry summary:
+injector -> host prefill-state LRU or device state pool -> engine behind
+the micro-batching scheduler) with a deterministic seeded request trace:
+arrivals trickle in one at a time (``gateway.submit``), feedback events
+ride along between them (``gateway.observe``), panes flush on pane-full
+or deadline, and served results are claimed off the streaming surface
+(``gateway.drain``). It prints per-round throughput and the gateway's
+telemetry summary:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch itfi-ranker \
       --reduced --device cpu --loop --users 200 --rounds 4 \
       [--roll-midway] [--build-budget N] [--rewarm N] [--max-wait SECS]
 
-The paged state pool (``--pool``), per-request A/B arms (``--ab``) and
-the device mesh (``--mesh``) are not ported yet and raise.
+``--pool SLOTS`` swaps the host LRU for the paged device-resident state
+pool (slot-table cache, indexed gather/scatter pane assembly on the
+engine's device):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch itfi-ranker \
+      --reduced --device cpu --loop --pool 64 --max-wait 0
+
+Per-request A/B arms (``--ab``) and the device mesh (``--mesh``) are not
+ported yet and raise.
 """
 from __future__ import annotations
 
@@ -42,7 +50,6 @@ from repro_torch.serving.engine import ServingConfig, ServingEngine
 
 DAY = 86400
 UNPORTED = {
-    "pool": "the paged device state pool (ROADMAP.md, queue 1, item 2)",
     "ab": "core/ab.py's arm policies (ROADMAP.md, queue 1, item 6)",
     "mesh": "the device mesh (ROADMAP.md, queue 1, item 9)",
 }
@@ -79,9 +86,15 @@ def run_loop(cfg, params, args, device) -> None:
         policy=args.policy, feature_len=feature_len), store, rts,
         device=device)
     gw = Gateway(eng, inj, ServerConfig(
-        slate_len=4, cache_entries=n_users, max_wait=args.max_wait,
+        slate_len=4, cache_entries=n_users,
+        pool_slots=args.pool, max_wait=args.max_wait,
         snapshot_build_budget=args.build_budget,
         rewarm_budget=args.rewarm))
+    if args.pool:
+        print(f"paged state pool: {args.pool} device slots x "
+              f"{gw.pool.slot_nbytes / 1e6:.2f} MB/slot"
+              + (f", continuous max_wait={args.max_wait}s"
+                 if args.max_wait is not None else ""))
 
     def sync():
         if device.type == "cuda":
@@ -182,7 +195,9 @@ def main(argv=None) -> None:
                     help="--loop: continuous batching; flush a partial pane "
                          "once its oldest arrival has waited this long")
     ap.add_argument("--pool", type=int, default=None, metavar="SLOTS",
-                    help="not ported: " + UNPORTED["pool"])
+                    help="--loop: paged device-resident state pool with "
+                         "this many slots (replaces the host LRU; must "
+                         "be >= --batch)")
     ap.add_argument("--ab", action="store_true",
                     help="not ported: " + UNPORTED["ab"])
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",

@@ -12,6 +12,8 @@ from repro_torch.serving.engine import (  # noqa: F401
     ServingConfig, ServingEngine)
 from repro_torch.serving.scheduler import (  # noqa: F401
     Gateway, PrefillStateCache, ServerConfig)
+from repro_torch.serving.pool import (  # noqa: F401
+    DeviceStatePool, PagedStateCache)
 from repro_torch.serving.loop import (  # noqa: F401
     InjectionServer, ServeResult)
 
@@ -23,6 +25,8 @@ __all__ = [
     "ServingConfig", "ServingEngine",
     # scheduler / facade (serving/scheduler.py)
     "Gateway", "ServerConfig", "PrefillStateCache",
+    # device-resident state pool (serving/pool.py)
+    "DeviceStatePool", "PagedStateCache",
     # deprecated wave shim (serving/loop.py)
     "InjectionServer", "ServeResult",
 ]

@@ -21,7 +21,7 @@ attention kernel streams keys, so ``ServingConfig`` has no ``q_chunk``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -43,9 +43,26 @@ class ServingConfig:
     temperature: float = 0.0       # 0 = greedy
 
 
-def _to_device(tree, device):
-    return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
+class ShapeDtype(NamedTuple):
+    """The shape and dtype of a tensor, without the tensor (the port's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of the same keys."""
+    return {k: _tree_map(fn, *(t[k] for t in trees))
+            if isinstance(trees[0][k], dict) else fn(*(t[k] for t in trees))
+            for k in trees[0]}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
 
 
 class ServingEngine:
@@ -60,7 +77,7 @@ class ServingEngine:
         self.cfg = cfg
         self.scfg = scfg
         self.device = resolve_device(device)
-        self.params = _to_device(params, self.device)
+        self.params = _tree_map(lambda x: x.to(self.device), params)
         # one device: a pane is one shard (the Gateway's per-shard bytes)
         self.data_shards = 1
 
@@ -68,6 +85,26 @@ class ServingEngine:
         if isinstance(x, np.ndarray) and not x.flags.writeable:
             x = x.copy()  # torch takes no read-only numpy buffers
         return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    # ------------------------------------------------------------------
+    def prefill_state_shapes(self) -> Tuple[ShapeDtype, Dict[str, Any]]:
+        """``(logits, caches)`` of one prefill pane as :class:`ShapeDtype`
+        leaves: what ``prefill`` returns for a ``(max_batch, prefill_len)``
+        call, logits ``(max_batch, prefill_len, Vp)`` and every cache leaf
+        layer-stacked with the batch on axis 1. The paged state pool
+        (serving/pool.py) sizes its slot buffers from this.
+
+        torch has no ``eval_shape``: one real row of prefill (last logits
+        only) runs on the engine's device, so the shapes cannot drift from
+        what prefill produces, and the batch and sequence sizes are put
+        back in."""
+        b, p = self.scfg.max_batch, self.scfg.prefill_len
+        state = self.prefill(np.zeros((1, p), np.int32),
+                             np.ones((1, p), bool), logits_last_only=True)
+        logits = state["logits"]
+        caches = _tree_map(lambda x: ShapeDtype(
+            (x.shape[0], b) + tuple(x.shape[2:]), x.dtype), state["caches"])
+        return (ShapeDtype((b, p, logits.shape[-1]), logits.dtype), caches)
 
     # ------------------------------------------------------------------
     def pad_tokens(self, seqs, length: int, align: str = "right",

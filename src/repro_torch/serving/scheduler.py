@@ -38,14 +38,21 @@ stream out through :meth:`Gateway.poll` / :meth:`Gateway.drain` as
 their rows retire — callers are no longer forced through wave-shaped
 ``flush()``.
 
-**The host prefill-state LRU.** Per-user prefill states live in a
-host LRU of CPU tensors (:class:`PrefillStateCache`): a miss pane's
-prefill state is copied to the host once per cache leaf and sliced into
-per-row entries, and every pane is re-assembled with host concats and
-one host->device copy per leaf. The device-resident paged state pool
-(``ServerConfig.pool_slots``) is not part of this package yet: a Gateway
-configured with it raises ``NotImplementedError``, as do online weight
-patches (``attach_trainer``, ``install_patch``).
+**The host prefill-state LRU and the paged state pool.** By default
+per-user prefill states live in a host LRU of CPU tensors
+(:class:`PrefillStateCache`): a miss pane's prefill state is copied to
+the host once per cache leaf and sliced into per-row entries, and every
+pane is re-assembled with host concats and one host->device copy per
+leaf. With ``ServerConfig.pool_slots`` set, states live in a
+preallocated slot pool on the engine's device (serving/pool.py): pane
+assembly is an indexed gather and admission writeback an indexed
+scatter, and no state visits the host. The slot table
+(:class:`PagedStateCache`) keeps the host LRU's exact key/counter/rekey
+surface, so the warm handoff composes unchanged — a generation rekey
+renames table keys and never touches device tensors. Both backends
+serve bitwise-identical slates (tests/test_torch_state_pool.py). Online
+weight patches (``attach_trainer``, ``install_patch``) are not part of
+this package yet and raise ``NotImplementedError``.
 
 **Mixed-policy panes.** Per-request ``policy`` resolves at
 feature-assembly time, so control ("batch"), treatment ("inject") and
@@ -95,7 +102,8 @@ from repro_torch.core.pipeline import items_to_tokens
 from repro_torch.serving.api import (POLICIES, GatewayStats, Request,
                                      RequestTelemetry, Response,
                                      RolloverStats, Ticket, as_event)
-from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.engine import ServingEngine, _leaves, _tree_map
+from repro_torch.serving.pool import DeviceStatePool, PagedStateCache
 
 PATCH_ITEM = ("ROADMAP.md, queue 1, item 4 (checkpoint I/O and the online "
               "trainer)")
@@ -308,10 +316,10 @@ class PrefillStateCache:
         return True
 
     # ------------------------------------------------------------------
-    # Backend-neutral delta-rewarm surface (the JAX package's paged pool
-    # mirrors it: here pending tokens live inside the host entry dict,
-    # there in a host-side sidecar next to the slot table — the gateway
-    # only ever talks to these three methods)
+    # Backend-neutral delta-rewarm surface (mirrored by PagedStateCache:
+    # here pending tokens live inside the host entry dict, there in a
+    # host-side sidecar next to the slot table — the gateway only ever
+    # talks to these three methods)
     # ------------------------------------------------------------------
 
     def has_entry(self, user: int, gen) -> bool:
@@ -388,11 +396,11 @@ class ServerConfig:
     long a queued request may wait (in request-clock units) before it
     is served in a padded partial pane — ``0`` serves every arrival the
     moment it lands, ``None`` keeps wave semantics (pane-full /
-    deadline / explicit flush only). ``pool_slots`` would move the
+    deadline / explicit flush only). ``pool_slots`` moves the
     prefill-state cache from the host LRU to a device-resident slot
-    pool; that pool is not ported yet, so the field is validated as in
-    the JAX package but a Gateway built with it raises
-    ``NotImplementedError``.
+    pool (serving/pool.py; must be >= the engine's ``max_batch``, and
+    it supersedes ``cache_entries``/``cache_bytes`` — a fixed pool IS
+    both budgets).
 
     **Deadline-aware load shedding.** ``pane_service_time`` gives the
     scheduler a service model: executing one pane occupies the server
@@ -518,18 +526,18 @@ class Gateway:
                 f"slate_len={cfg.slate_len} exceeds the engine's item "
                 f"vocabulary ({engine.cfg.vocab_size}); a slate decodes "
                 f"distinct items, so it cannot be longer than the catalog")
-        if cfg.pool_slots is not None:
-            raise NotImplementedError(
-                f"ServerConfig(pool_slots={cfg.pool_slots}): the paged "
-                f"device state pool is not ported yet (ROADMAP.md, queue 1, "
-                f"item 2: the state pool); leave pool_slots unset to serve "
-                f"from the host LRU")
         self.engine = engine
         self.injector = injector
         self.cfg = cfg
-        self.cache = PrefillStateCache(cfg.cache_entries,
-                                       byte_budget=cfg.cache_bytes,
-                                       shards=engine.data_shards)
+        if cfg.pool_slots is not None:
+            self.pool: Optional[DeviceStatePool] = DeviceStatePool(
+                engine, cfg.pool_slots)
+            self.cache = PagedStateCache(self.pool)
+        else:
+            self.pool = None
+            self.cache = PrefillStateCache(cfg.cache_entries,
+                                           byte_budget=cfg.cache_bytes,
+                                           shards=engine.data_shards)
         # the cache-key generation is COMPOSITE: (snapshot cutoff,
         # model version). Both caches compare keys only by equality, so
         # a weight-patch install invalidates exactly like a snapshot
@@ -1319,11 +1327,15 @@ class Gateway:
             hit_flags = [False] * len(ereqs)
             paths = ["prefill"] * len(ereqs)
         else:
-            entries, hit_flags = self._lookup_or_admit(
-                ereqs, epol, cacheable, gen, now)
-            state = _cat_rows(entries, eng.scfg.max_batch, eng.device)
-            last = _join([e["last_logits"] for e in _pad_list(
-                entries, eng.scfg.max_batch)], 0, eng.device, stack=True)
+            if self.pool is not None:
+                state, last, hit_flags = self._assemble_pool(
+                    ereqs, epol, cacheable, gen, now)
+            else:
+                entries, hit_flags = self._lookup_or_admit(
+                    ereqs, epol, cacheable, gen, now)
+                state = _cat_rows(entries, eng.scfg.max_batch, eng.device)
+                last = _join([e["last_logits"] for e in _pad_list(
+                    entries, eng.scfg.max_batch)], 0, eng.device, stack=True)
             if any(suffix):
                 stoks, svalid = eng.pad_tokens(suffix, eng.scfg.inject_len,
                                                align="left")
@@ -1368,6 +1380,50 @@ class Gateway:
         self.decode_steps += max_len - 1
         return slate, max_len
 
+    @staticmethod
+    def _probe(reqs: Sequence[Request], policies: Sequence[str],
+               cacheable: Sequence[bool], gen, lookup,
+               ) -> Tuple[Dict[Any, Any], List[bool], List[Any], List[Any],
+                          List[int]]:
+        """The per-row cache probe of both backends. Cacheable rows call
+        ``lookup(user, gen)`` once per ROW (not per unique user) so
+        hit/miss counters stay in request units even when a pane repeats
+        a user; misses and uncacheable rows (keyed ``(user, policy,
+        "ephemeral")``) form one deduplicated admission list. Returns
+        ``(found {key: lookup result}, hit_flags, row keys, miss keys,
+        miss rows)``."""
+        found: Dict[Any, Any] = {}
+        hit_flags: List[bool] = []
+        keys: List[Any] = []
+        miss_seen = set()
+        miss_keys: List[Any] = []
+        miss_rows: List[int] = []
+        for i, (req, pol, can) in enumerate(zip(reqs, policies, cacheable)):
+            key = req.user if can else (req.user, pol, "ephemeral")
+            value = lookup(req.user, gen) if can else None
+            if value is not None:
+                found[key] = value
+            elif key not in miss_seen:
+                miss_seen.add(key)
+                miss_keys.append(key)
+                miss_rows.append(i)
+            hit_flags.append(value is not None)
+            keys.append(key)
+        return found, hit_flags, keys, miss_keys, miss_rows
+
+    def _prefill_rows(self, reqs: Sequence[Request],
+                      policies: Sequence[str], rows: Sequence[int],
+                      now: int) -> Dict[str, Any]:
+        """One fixed-shape prefill of ``rows``' batch histories, the
+        pane's admissions (last-position logits only)."""
+        eng = self.engine
+        hists = self._histories([reqs[i] for i in rows],
+                                [policies[i] for i in rows], now)
+        toks, valid = eng.pad_tokens(hists, eng.scfg.prefill_len)
+        state = eng.prefill(toks, valid, logits_last_only=True)
+        self.prefill_calls += 1
+        return state
+
     def _lookup_or_admit(self, reqs: Sequence[Request],
                          policies: Sequence[str],
                          cacheable: Sequence[bool], gen: int, now: int,
@@ -1385,43 +1441,10 @@ class Gateway:
         (user, policy) for intra-pane dedup only (one pane = one serve
         clock).
         """
-        eng = self.engine
-        entries: Dict[Any, Dict[str, Any]] = {}
-        hit_flags: List[bool] = []
-        keys: List[Any] = []
-        miss_seen = set()
-        miss_keys: List[Any] = []
-        miss_rows: List[int] = []
-        for i, (req, pol, can) in enumerate(zip(reqs, policies, cacheable)):
-            if can:
-                key = req.user
-                # probe once per ROW (not per unique user) so hit/miss
-                # counters stay in request units even when a pane repeats
-                # a user; the admission list itself is deduplicated
-                e = self.cache.get(req.user, gen)
-                if e is None:
-                    if key not in miss_seen:
-                        miss_seen.add(key)
-                        miss_keys.append(key)
-                        miss_rows.append(i)
-                    hit_flags.append(False)
-                else:
-                    entries[key] = e
-                    hit_flags.append(True)
-            else:
-                key = (req.user, pol, "ephemeral")
-                if key not in miss_seen:
-                    miss_seen.add(key)
-                    miss_keys.append(key)
-                    miss_rows.append(i)
-                hit_flags.append(False)
-            keys.append(key)
+        entries, hit_flags, keys, miss_keys, miss_rows = self._probe(
+            reqs, policies, cacheable, gen, self.cache.get)
         if miss_rows:
-            hists = self._histories([reqs[i] for i in miss_rows],
-                                    [policies[i] for i in miss_rows], now)
-            toks, valid = eng.pad_tokens(hists, eng.scfg.prefill_len)
-            state = eng.prefill(toks, valid, logits_last_only=True)
-            self.prefill_calls += 1
+            state = self._prefill_rows(reqs, policies, miss_rows, now)
             host = _host_state(state)  # one device→host sync per leaf
             for j, (key, i) in enumerate(zip(miss_keys, miss_rows)):
                 entry = _slice_row(host, j)
@@ -1429,6 +1452,52 @@ class Gateway:
                     self.cache.put(reqs[i].user, gen, entry)
                 entries[key] = entry
         return [entries[k] for k in keys], hit_flags
+
+    def _assemble_pool(self, reqs: Sequence[Request],
+                       policies: Sequence[str],
+                       cacheable: Sequence[bool], gen: int, now: int,
+                       gather: bool = True,
+                       ) -> Tuple[Optional[Dict[str, Any]], Any, List[bool]]:
+        """Pooled twin of ``_lookup_or_admit`` + ``_cat_rows``: per-row
+        slot resolution, one fixed-shape prefill for all misses
+        scattered straight into pool slots, then a gather assembling the
+        pane on the device — no state ever visits the host.
+
+        Probe/admission order, dedup, and the ephemeral treatment of
+        uncacheable rows mirror the host path exactly (the two backends
+        must stay bitwise-equal and counter-identical). Slots touched by
+        this pane — hits and fresh admissions — are *pinned* so
+        slot-pressure eviction during admission can never free a slot
+        the pane is about to read; scratch slots of ephemeral rows
+        return to the free list once the pane is assembled. With
+        ``gather=False`` (the warming path) admission happens but no
+        pane is assembled."""
+        cache = self.cache  # PagedStateCache
+        slot_of, hit_flags, keys, miss_keys, miss_rows = self._probe(
+            reqs, policies, cacheable, gen, cache.lookup)
+        pinned = set(slot_of.values())
+        scratch: List[int] = []
+        if miss_rows:
+            state = self._prefill_rows(reqs, policies, miss_rows, now)
+            for key, i in zip(miss_keys, miss_rows):
+                if cacheable[i]:
+                    s = cache.admit(reqs[i].user, gen, pinned)
+                else:
+                    s = cache.alloc_scratch(pinned)
+                    scratch.append(s)
+                pinned.add(s)
+                slot_of[key] = s
+            self.pool.scatter(state, [slot_of[k] for k in miss_keys])
+        pane = last = None
+        if gather:
+            # short panes pad by repeating row 0's slot inside gather —
+            # the same padding rows (and therefore bitwise the same pane)
+            # as the host path's _pad_list; padding is discarded after
+            # decode
+            pane, last = self.pool.gather([slot_of[k] for k in keys])
+        for s in scratch:
+            cache.free_scratch(s)
+        return pane, last, hit_flags
 
     # ------------------------------------------------------------------
     # Warming
@@ -1453,8 +1522,13 @@ class Gateway:
             pane = [Request(user=int(u), now=int(now))
                     for u in users[lo:lo + b]]
             before = self.cache.misses
-            self._lookup_or_admit(pane, [pol] * len(pane),
-                                  [True] * len(pane), gen, int(now))
+            if self.pool is not None:
+                self._assemble_pool(pane, [pol] * len(pane),
+                                    [True] * len(pane), gen, int(now),
+                                    gather=False)
+            else:
+                self._lookup_or_admit(pane, [pol] * len(pane),
+                                      [True] * len(pane), gen, int(now))
             warmed += self.cache.misses - before
             if self.cache.evictions - self.cache.stale_evictions > ev0:
                 return warmed, True
@@ -1622,23 +1696,9 @@ class Gateway:
 # by host concats and crosses host->device once per leaf. On a CUDA
 # engine both crossings go through pinned memory; the host->device copy
 # is asynchronous on the current stream, ahead of the inject that reads
-# it.
+# it. The paged pool (serving/pool.py) replaces all of this with indexed
+# copies on the device.
 # ----------------------------------------------------------------------
-
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
-
-
-def _tree_map(fn, *trees):
-    """``fn`` over the leaves of nested dicts of the same keys."""
-    return {k: _tree_map(fn, *(t[k] for t in trees))
-            if isinstance(trees[0][k], dict) else fn(*(t[k] for t in trees))
-            for k in trees[0]}
-
 
 def _to_host(x: torch.Tensor) -> torch.Tensor:
     """``x`` on the host. A CUDA tensor lands in pinned memory, whose

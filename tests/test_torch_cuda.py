@@ -14,6 +14,9 @@ its unnormalised ones, ``decode_attention`` keeps them f32). ``ssd_scan``'s
 y must be within the same tolerances of ``ssd_chunked`` (another summation
 order; bf16 rounds y once), its f32 final state within 1e-4, and a row
 that is all padding (dt = 0) must keep its incoming state bit for bit.
+The paged state pool's gather and scatter must copy every leaf bit for
+bit on the card, and a pooled Gateway there must serve what a host-LRU
+one does, bit for bit.
 """
 import numpy as np
 import pytest
@@ -413,3 +416,94 @@ def test_gateway_cuda_matches_cpu(cuda):
         np.testing.assert_array_equal(g.response.slate, c.response.slate)
         np.testing.assert_allclose(g.response.scores, c.response.scores,
                                    atol=1e-4, rtol=1e-4)
+
+
+def _tiny_cuda_engine(cuda, arch="tiny-test"):
+    from repro_torch.configs import ModelConfig, get_config, reduced
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    from conftest import N_ITEMS
+    cfg = (reduced(get_config("mamba2-780m")) if arch == "mamba2" else
+           ModelConfig(name="tiny-test", family="dense", n_layers=2,
+                       d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                       vocab_size=N_ITEMS + 256, rope_theta=1e4,
+                       tie_embeddings=True))
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    return ServingEngine(cfg, params, ServingConfig(
+        max_batch=4, prefill_len=32, inject_len=8, cache_capacity=64),
+        device=cuda)
+
+
+@pytest.mark.parametrize("arch", ["tiny-test", "mamba2"])
+def test_state_pool_roundtrip_cuda(cuda, arch):
+    """The pool's gather and scatter on the card: every leaf (K/V or the
+    SSM conv tails and f32 state, bool ``valid``, int32 ``next_pos``,
+    the last logits) bit for bit, untouched slots still zero, and a
+    gathered pane that shares no storage with the pool."""
+    from repro_torch.serving import DeviceStatePool
+
+    eng = _tiny_cuda_engine(cuda, arch)
+    rng = np.random.RandomState(0)
+    seqs = [rng.randint(1, 300, rng.randint(4, 20)).tolist()
+            for _ in range(4)]
+    state = eng.prefill(*eng.pad_tokens(seqs, 32))
+    pool = DeviceStatePool(eng, 8)
+    pool.scatter(state, [5, 0, 7, 2])
+    got, last = pool.gather([5, 0, 7])
+    idx = torch.tensor([0, 1, 2, 0], device=cuda)
+    flat = [(g, s) for g, s in zip(_tree_leaves(got["caches"]),
+                                   _tree_leaves(state["caches"]))]
+    for g, s in flat:
+        assert g.device.type == cuda.type and torch.equal(g, s[:, idx])
+    assert got["valid"].dtype == torch.bool
+    assert got["next_pos"].dtype == torch.int32
+    assert torch.equal(got["valid"], state["valid"][idx])
+    assert torch.equal(got["next_pos"], state["next_pos"][idx])
+    assert torch.equal(last, state["logits"][idx, -1])
+    for x in _tree_leaves(pool.caches):
+        assert not x[:, [1, 3, 4, 6]].any()
+        assert not any(g.data_ptr() == x.data_ptr() for g, _ in flat)
+
+
+def _tree_leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tree_leaves(v)
+        else:
+            yield v
+
+
+def test_pooled_gateway_cuda_matches_host_lru(cuda):
+    """A ``tiny-test`` Gateway on the card with the paged state pool and
+    one with the host LRU, fp32, over a warm pass, a hit wave, a miss
+    wave and a wave that evicts under slot pressure: equal paths, slates
+    and scores, bit for bit."""
+    from repro_torch.serving import Gateway, Request, ServerConfig
+    from torch_port import make_injector
+
+    from conftest import DAY
+    eng = _tiny_cuda_engine(cuda)
+    now = 5 * DAY + 100
+    out = []
+    for kw in (dict(pool_slots=12), dict(cache_entries=12)):
+        gw = Gateway(eng, make_injector("repro_torch", device=cuda),
+                     ServerConfig(slate_len=3, **kw))
+        gw.observe_many(np.arange(16), np.arange(16) + 7,
+                        np.full(16, now - 20))
+        assert gw.warm(np.arange(8), now) == 8
+        tickets = []
+        for users in (np.arange(8), np.arange(8, 16), np.arange(4, 12)):
+            tickets += gw.submit_many([Request(user=int(u), now=now)
+                                       for u in users])
+            gw.flush(now)
+        out.append((tickets, gw.cache.stats()))
+    (pooled, pst), (host, hst) = out
+    assert pst["evictions"] == hst["evictions"] > 0
+    assert [t.response.telemetry.path for t in pooled][:16] == \
+        ["inject"] * 8 + ["prefill"] * 8
+    for p, h in zip(pooled, host):
+        assert p.response.telemetry.path == h.response.telemetry.path
+        np.testing.assert_array_equal(p.response.slate, h.response.slate)
+        np.testing.assert_array_equal(p.response.scores, h.response.scores)

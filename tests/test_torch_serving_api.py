@@ -8,8 +8,8 @@ validation must raise the same exception with the same message. A seeded
 sequence of cache operations must leave both packages' ``PrefillStateCache``
 with the same keys in the same LRU order and the same counters, bytes
 included. The shim must warn and serve bit for bit what ``submit_many`` +
-``flush`` serves. What the port has not taken over yet (the state pool,
-weight patches) raises ``NotImplementedError``.
+``flush`` serves. What the port has not taken over yet (weight patches)
+raises ``NotImplementedError``.
 """
 import dataclasses
 
@@ -276,8 +276,6 @@ def test_injection_server_shim_warns_and_matches_gateway(engine):
 
 
 def test_unported_parts_raise(engine):
-    with pytest.raises(NotImplementedError, match="item 2"):
-        _gateway(engine, pool_slots=8)
     gw = _gateway(engine)
     with pytest.raises(NotImplementedError, match="item 4"):
         gw.attach_trainer(object())
@@ -290,11 +288,13 @@ def test_unported_parts_raise(engine):
 @pytest.mark.parametrize("extra,ok", [
     (["--roll-midway", "--rewarm", "4", "--max-wait", "3"], True),
     (["--build-budget", "10", "--roll-midway"], True),
-    (["--pool", "8"], False), (["--ab"], False), (["--mesh", "2,1"], False)])
+    (["--pool", "8", "--roll-midway"], True), (["--ab"], False),
+    (["--mesh", "2,1"], False)])
 def test_serve_launcher_loop_on_cpu_without_jax(extra, ok):
     """``python -m repro_torch.launch.serve --loop`` drives the Gateway
-    with a seeded trace on the CPU, with ``jax`` made unimportable; the
-    parts not ported yet stop it with a message naming their item."""
+    with a seeded trace on the CPU, with ``jax`` made unimportable, from
+    the host LRU or (``--pool``) the paged state pool; the parts not
+    ported yet stop it with a message naming their item."""
     import os
     import subprocess
     import sys
@@ -317,6 +317,11 @@ def test_serve_launcher_loop_on_cpu_without_jax(extra, ok):
         assert "ROADMAP.md" in out.stderr
         return
     assert out.returncode == 0, out.stderr
-    for line in ("warm: 40 prefill states", "round 0:", "round 1:",
+    # warm() clamps to the cache's budget: 8 slots, or 40 LRU entries
+    warmed = 8 if "--pool" in extra else 40
+    for line in (f"warm: {warmed} prefill states", "round 0:", "round 1:",
                  "-- generation rollover", "telemetry: paths="):
         assert line in out.stdout, out.stdout
+    if "--pool" in extra:
+        assert "paged state pool: 8 device slots" in out.stdout
+        assert "'slots': 8" in out.stdout

@@ -14,6 +14,11 @@ decay rows are numpy on both sides and equal), and equal telemetry. The
 not a wall-clock reading (``build_time_s``, ``build_slice_max_s``,
 ``patch_install_max_ms``), byte accounting included.
 
+Each scenario runs once with the host LRU and once, in
+``test_pooled_backend``, with the paged state pool on both sides
+(``pool_slots`` equal to the scenario's entry budget); the pooled
+property of ``tests/test_property.py`` runs here on seeded schedules.
+
 Schedules are scripted or drawn from a seeded numpy RNG, never searched
 and never timed: the background build case waits for the build's worker
 thread (a synchronisation, not a sleep) so both gateways install the new
@@ -70,9 +75,11 @@ class Pair:
     Every ticket either side returns is kept for ``check``."""
 
     def __init__(self, engines, policy="inject", events=None,
-                 store_kw=None, **cfg_kw):
+                 store_kw=None, pool=False, **cfg_kw):
         cfg_kw.setdefault("slate_len", 3)
         cfg_kw.setdefault("cache_entries", 64)
+        if pool:
+            cfg_kw.setdefault("pool_slots", cfg_kw["cache_entries"])
         store_kw = store_kw or {}
         jeng, eng = engines
         self.gws = (
@@ -142,11 +149,11 @@ def _reqs(users, now, **kw):
 # Scripted cases
 # ----------------------------------------------------------------------
 
-def test_waves_and_trickle(engines):
+def test_waves_and_trickle(engines, pool=False):
     """Waves (``submit_many`` + ``flush``, several panes, a repeated
     user, cache-aware hit-first partitioning) and a trickle of single
     submits with pane-full flushes, before and after fresh events."""
-    p = Pair(engines)
+    p = Pair(engines, pool=pool)
     users = [1, 2, 3, 4, 5, 6, 2, 9, 10]
     p.submit_many(_reqs(users, T0))
     p.flush(T0)
@@ -163,8 +170,8 @@ def test_waves_and_trickle(engines):
     assert st.cache["hits"] > 0 and st.cache["misses"] > 0
 
 
-def test_max_wait_zero_partial_panes(engines):
-    p = Pair(engines, max_wait=0)
+def test_max_wait_zero_partial_panes(engines, pool=False):
+    p = Pair(engines, pool=pool, max_wait=0)
     p.observe_many([3, 4], [7, 8], [T0 - 5, T0 - 4])
     for i, u in enumerate([3, 4, 3, 5, 6, 7, 4]):
         p.submit(user=u, now=T0 + i)
@@ -175,10 +182,10 @@ def test_max_wait_zero_partial_panes(engines):
     assert st.panes > st.requests // 4
 
 
-def test_mixed_policy_panes(engines):
+def test_mixed_policy_panes(engines, pool=False):
     """batch, inject, fresh and decay rows share panes; fresh rows are
     ephemeral admissions, decay rows never reach the engine."""
-    p = Pair(engines)
+    p = Pair(engines, pool=pool)
     p.observe_many([1, 2, 3, 4], [11, 12, 13, 14], [T0 - 9] * 4)
     pols = ["batch", "inject", "fresh", "decay", None]
     specs = [dict(user=u, now=T0, policy=pols[i % 5])
@@ -195,8 +202,8 @@ def test_mixed_policy_panes(engines):
     assert all(st.paths[k] > 0 for k in ("prefill", "decay"))
 
 
-def test_per_row_slate_len(engines):
-    p = Pair(engines, slate_len=2)
+def test_per_row_slate_len(engines, pool=False):
+    p = Pair(engines, pool=pool, slate_len=2)
     p.observe_many([1, 2], [5, 6], [T0 - 9] * 2)
     lens = [1, 5, None, 3, 2, None, 4]
     p.submit_many([dict(user=u, now=T0, slate_len=k)
@@ -207,17 +214,18 @@ def test_per_row_slate_len(engines):
         [k or 2 for k in lens]
 
 
-def test_deadline_flush_and_shedding(engines):
+def test_deadline_flush_and_shedding(engines, pool=False):
     """A deadline flushes a partial pane on the clock; with a service
     model and ``shed_policy="deadline"`` late requests are shed at submit
     and at flush, and served-late ones count as misses."""
-    p = Pair(engines)
+    p = Pair(engines, pool=pool)
     p.submit(user=1, now=T0, deadline=T0 + 30)
     p.submit(user=2, now=T0 + 1)
     p.tick(T0 + 29)
     p.tick(T0 + 30)
     p.check()
-    s = Pair(engines, pane_service_time=20, shed_policy="deadline")
+    s = Pair(engines, pool=pool, pane_service_time=20,
+             shed_policy="deadline")
     s.submit_many([dict(user=u, now=T0, deadline=T0 + d) for u, d in
                    zip(range(10), [15, 100, 30, 45, 60, 19, 80, 25, 90,
                                    200])])
@@ -230,17 +238,23 @@ def test_deadline_flush_and_shedding(engines):
 
 
 @pytest.mark.parametrize("budget", ["entries", "bytes"])
-def test_lru_eviction(engines, budget):
+def test_lru_eviction(engines, budget, pool=False):
     """Eviction under ``cache_entries`` and under the byte budget: the
-    port's entries must count the same bytes as the JAX package's."""
-    probe = Pair(engines)
+    port's entries must count the same bytes as the JAX package's. A
+    pool's slot count is the budget in entries; it cannot be below
+    ``max_batch`` (4), so the byte budget of 3.5 entries becomes 4
+    slots."""
+    probe = Pair(engines, pool=pool)
     probe.submit_many(_reqs([0], T0))
     probe.flush(T0)
     entry = probe.gws[1].cache.bytes_per_shard
     assert entry == probe.gws[0].cache.bytes_per_shard > 0
     kw = ({"cache_entries": 5} if budget == "entries"
           else {"cache_bytes": 3 * entry + entry // 2})
-    p = Pair(engines, **kw)
+    if pool and budget == "bytes":
+        kw["pool_slots"] = max(kw["cache_bytes"] // entry,
+                               engines[1].scfg.max_batch)
+    p = Pair(engines, pool=pool, **kw)
     rng = np.random.RandomState(7)
     for wave in range(4):
         p.submit_many(_reqs(rng.randint(0, 12, 6), T0 + wave))
@@ -250,11 +264,11 @@ def test_lru_eviction(engines, budget):
     assert st.cache["evictions"] > 0
 
 
-def test_warm_handoff_rollover_with_rewarm(engines):
+def test_warm_handoff_rollover_with_rewarm(engines, pool=False):
     """A warm pass, then a generation roll with a certified handoff:
     unchanged users rekeyed, changed users retained then re-warmed by
     ``rewarm_budget`` on later ticks; the next wave serves from both."""
-    p = Pair(engines, rewarm_budget=2, cache_entries=16)
+    p = Pair(engines, pool=pool, rewarm_budget=2, cache_entries=16)
     users = list(range(10))
     p.warm(users, T0)
     p.submit_many(_reqs(users, T0))
@@ -270,10 +284,10 @@ def test_warm_handoff_rollover_with_rewarm(engines):
     assert st.rollover.rekeyed > 0 and st.rollover.rebuilt > 0
 
 
-def test_snapshot_build_budget(engines):
+def test_snapshot_build_budget(engines, pool=False):
     """The incremental daily job: the roll lands over several ticks while
     serving reads the previous generation."""
-    p = Pair(engines, snapshot_build_budget=3)
+    p = Pair(engines, pool=pool, snapshot_build_budget=3)
     users = list(range(8))
     p.submit_many(_reqs(users, T0))
     p.flush(T0)
@@ -286,12 +300,12 @@ def test_snapshot_build_budget(engines):
     assert st.rollover.build_steps >= 2
 
 
-def test_background_build(engines):
+def test_background_build(engines, pool=False):
     """``background_build``: the worker thread builds the generation with
     numpy only and the install happens on a serving tick. Each store's
     builder is waited for as it starts (no sleep), so both gateways
     install on the same tick."""
-    p = Pair(engines, background_build=True)
+    p = Pair(engines, pool=pool, background_build=True)
     for gw in p.gws:
         store = gw.injector.batch
         begin = store.begin_snapshot_background
@@ -313,7 +327,7 @@ def test_background_build(engines):
     assert p.gws[1].injector.generation(T0 + DAY) == 6 * DAY
 
 
-def test_delta_rewarm(engines):
+def test_delta_rewarm(engines, pool=False):
     """O(delta) re-warm: changed users whose new snapshot row extends the
     old one are rekeyed with the delta as pending inject tokens, served
     on the inject path with no prefill; one user's delta plus its fresh
@@ -321,7 +335,8 @@ def test_delta_rewarm(engines):
     rng = np.random.RandomState(4)
     events = (rng.randint(0, N_USERS, 200), rng.randint(0, N_ITEMS, 200),
               rng.randint(0, T0 - 100, 200))
-    p = Pair(engines, events=events, delta_rewarm=True, rewarm_budget=8)
+    p = Pair(engines, pool=pool, events=events, delta_rewarm=True,
+             rewarm_budget=8)
     users = [0, 1, 2, 3, 4, 5]
     p.submit_many(_reqs(users, T0))
     p.flush(T0)
@@ -339,11 +354,11 @@ def test_delta_rewarm(engines):
 
 
 @pytest.mark.parametrize("mode", ["sync", "background"])
-def test_log_compaction(engines, mode):
+def test_log_compaction(engines, mode, pool=False):
     """Tick-driven compaction of a windowed event log. A background
     compaction's worker is waited for after the tick that starts it (a
     join, not a sleep), so both gateways install it on the next tick."""
-    p = Pair(engines, log_compaction=mode,
+    p = Pair(engines, pool=pool, log_compaction=mode,
              store_kw=dict(log_window=DAY, log_retention_windows=3))
     for k in range(5):
         now = T0 + k * DAY // 2
@@ -373,11 +388,11 @@ SCHEDULES = {
 
 
 @pytest.mark.parametrize("seed", sorted(SCHEDULES))
-def test_seeded_schedule(engines, seed):
+def test_seeded_schedule(engines, seed, pool=False):
     """A seeded mix of single submits (random policy, slate length and
     deadline), waves, events, ticks and flushes, with the clock crossing
     daily boundaries."""
-    p = Pair(engines, **SCHEDULES[seed])
+    p = Pair(engines, pool=pool, **SCHEDULES[seed])
     rng = np.random.RandomState(100 + seed)
     now = T0
     pols = [None, None, "batch", "inject", "fresh", "decay"]
@@ -420,10 +435,10 @@ def test_seeded_schedule(engines, seed):
 # SSM caches through the host LRU, and aliasing
 # ----------------------------------------------------------------------
 
-def test_reduced_mamba2_through_the_lru(mamba_engines):
+def test_reduced_mamba2_through_the_lru(mamba_engines, pool=False):
     """reduced(mamba2-780m): conv tails and the f32 state are cached per
     row, reassembled and injected; a rollover rekeys them."""
-    p = Pair(mamba_engines, rewarm_budget=4)
+    p = Pair(mamba_engines, pool=pool, rewarm_budget=4)
     users = [0, 1, 2, 3, 4, 5]
     p.warm(users, T0)
     p.observe_many([0, 1, 2], [7, 8, 9], [T0 - 5] * 3)
@@ -468,3 +483,126 @@ def _flat(tree, prefix=""):
             yield from _flat(v, f"{prefix}{k}/")
         elif isinstance(v, torch.Tensor):
             yield f"{prefix}{k}", v
+
+
+# ----------------------------------------------------------------------
+# The paged state pool: every scenario again, pooled on both sides
+# ----------------------------------------------------------------------
+
+POOLED = {
+    "waves_and_trickle": lambda e, m: test_waves_and_trickle(e, True),
+    "max_wait_zero": lambda e, m: test_max_wait_zero_partial_panes(e, True),
+    "mixed_policy": lambda e, m: test_mixed_policy_panes(e, True),
+    "per_row_slate_len": lambda e, m: test_per_row_slate_len(e, True),
+    "deadline_shedding": lambda e, m: test_deadline_flush_and_shedding(
+        e, True),
+    "eviction-entries": lambda e, m: test_lru_eviction(e, "entries", True),
+    "eviction-bytes": lambda e, m: test_lru_eviction(e, "bytes", True),
+    "handoff_rewarm": lambda e, m: test_warm_handoff_rollover_with_rewarm(
+        e, True),
+    "build_budget": lambda e, m: test_snapshot_build_budget(e, True),
+    "background_build": lambda e, m: test_background_build(e, True),
+    "delta_rewarm": lambda e, m: test_delta_rewarm(e, True),
+    "compaction-sync": lambda e, m: test_log_compaction(e, "sync", True),
+    "compaction-background": lambda e, m: test_log_compaction(
+        e, "background", True),
+    **{f"schedule-{k}": (lambda e, m, k=k: test_seeded_schedule(e, k, True))
+       for k in sorted(SCHEDULES)},
+    "reduced_mamba2": lambda e, m: test_reduced_mamba2_through_the_lru(
+        m, True),
+}
+
+
+@pytest.mark.parametrize("case", list(POOLED))
+def test_pooled_backend(engines, mamba_engines, case):
+    """The scenario ``case`` with ``ServerConfig(pool_slots=...)`` on both
+    Gateways, slots equal to the scenario's entry budget: the same
+    responses and every non-wall-clock counter equal, the pool's
+    ``slots``, ``free_slots``, ``slot_bytes`` and ``bytes_per_shard``
+    included."""
+    POOLED[case](engines, mamba_engines)
+
+
+_OPS = ("submit", "observe", "tick", "flush")
+
+
+def _random_ops(rng):
+    """test_property.py's op language, drawn from a seeded RNG."""
+    ops = []
+    for _ in range(rng.randint(2, 15)):
+        kind = _OPS[rng.randint(4)]
+        if kind == "submit":
+            dl = [None, 0, 1, 2, 5][rng.randint(5)]
+            ops.append((kind, int(rng.randint(N_USERS)), dl))
+        elif kind == "observe":
+            ops.append((kind, int(rng.randint(N_USERS)),
+                        int(rng.randint(N_ITEMS))))
+        elif kind == "tick":
+            ops.append((kind, int(rng.randint(1, 4))))
+        else:
+            ops.append((kind,))
+    return ops
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_random_interleaving_pooled_continuous_equals_wave(engines, seed):
+    """test_property.py's property on seeded schedules: interleaved
+    submit/observe/tick/flush ops (deadlines down to ``now``) with a
+    generation rollover between two halves, served by a pooled +
+    continuous + shedding Gateway of each package (held against each
+    other by ``Pair``, ``RolloverStats`` included) and by the port's
+    host-LRU wave path (submit + flush at the same clock): every request
+    the shedder admits is bit for bit the wave path's, and the shed ones
+    are exactly the difference."""
+    rng = np.random.RandomState(200 + seed)
+    cont = Pair(engines, pool_slots=16, max_wait=0, pane_service_time=1,
+                shed_policy="deadline")
+    wave = Gateway(engines[1], make_injector("repro_torch"),
+                   ServerConfig(slate_len=3, cache_entries=64))
+    now = T0
+    pairs = []
+
+    def play(ops):
+        nonlocal now
+        for op in ops:
+            if op[0] == "submit":
+                _, user, dl = op
+                spec = dict(user=user, now=now,
+                            deadline=None if dl is None else now + dl)
+                cont.submit(**spec)   # served-or-shed on arrival
+                b = wave.submit(api.Request(**spec))
+                wave.flush(now)
+                a = cont.tickets[1][-1]
+                assert a.done and b.done
+                pairs.append((a, b))
+            elif op[0] == "observe":
+                cont.observe((op[1], op[2], now))
+                wave.observe((op[1], op[2], now))
+            elif op[0] == "tick":
+                now += op[1]
+                cont.tick(now)
+                wave.tick(now)
+            else:
+                cont.flush(now)
+                wave.flush(now)
+
+    play(_random_ops(rng))
+    now += DAY                          # mid-trace generation rollover
+    cont.tick(now)
+    wave.tick(now)
+    play(_random_ops(rng))
+    cont.drain(now)
+    wave.drain(now)
+    shed = 0
+    for a, b in pairs:
+        assert not b.response.shed
+        if a.response.shed:
+            shed += 1
+            assert a.response.telemetry.path == "shed"
+            assert a.response.slate.size == 0
+            continue
+        np.testing.assert_array_equal(a.response.slate, b.response.slate)
+        np.testing.assert_array_equal(a.response.scores, b.response.scores)
+        assert a.response.telemetry.policy == b.response.telemetry.policy
+    st = cont.check()                   # JAX against port, rollover too
+    assert st.shed == shed

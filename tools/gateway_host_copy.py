@@ -4,12 +4,12 @@ through pinned memory against through pageable memory, on one GPU.
 
     python3 tools/gateway_host_copy.py
 
-Runs ``chip_smoke.py``'s Gateway phase (a warm pass of 1024 users, a hit
-wave from the host prefill-state LRU, a miss wave of 1024 other users,
-and its checks) on the full-width ``itfi-ranker`` over ``chip_smoke.py``'s
-feature plane four times in one process, in the order pageable, pinned,
-pinned, pageable, so that the reuse of host memory freed by an earlier
-run's LRU favours neither. ``pinned`` is ``serving/scheduler.py`` as it
+Runs ``chip_smoke.py``'s Gateway phase from the host prefill-state LRU
+only (a warm pass of 1024 users, a hit wave from the LRU, a miss wave of
+1024 other users, and its checks) on the full-width ``itfi-ranker`` over
+``chip_smoke.py``'s feature plane four times in one process, in the
+order pageable, pinned, pinned, pageable, so that the reuse of host
+memory freed by an earlier run's LRU favours neither. ``pinned`` is ``serving/scheduler.py`` as it
 is; ``pageable`` copies each leaf of a prefill state to the host with
 ``Tensor.cpu()`` (into fresh pageable memory) and assembles a pane with
 ``torch.cat`` and ``Tensor.to``. Each run prints the phase's lines: ms per
@@ -76,7 +76,8 @@ def main() -> int:
                     scheduler, "_host_state", pageable_host_state))
                 stack.enter_context(mock.patch.object(
                     scheduler, "_join", pageable_join))
-            cs.run_gateway_path(dev, gpu, plat, params, now)
+            cs.run_gateway_path(dev, gpu, plat, params, now,
+                                backends=("host LRU",))
         gc.collect()
         torch.cuda.empty_cache()
     print(gpu)
