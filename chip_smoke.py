@@ -59,7 +59,32 @@
    from the pool, a miss wave of 256 others that evicts under slot
    pressure, each timed by phase with its ``ssd_scan`` launches counted;
    the bf16 hit slates must equal the engine's direct prefill -> inject
-   -> decode_slate on the same users.
+   -> decode_slate on the same users; the hit wave again and a miss wave
+   with the eager slate loop in place of the graph, timed by phase;
+12. holds ``decode_slate`` (on the card one replay of a captured CUDA
+   graph of the whole greedy slate) bit for bit against its eager loop
+   (``_decode_slate_loop``) on an itfi hit pane of 256 rows in bf16 and
+   fp32 and a full-width Mamba2 hit pane of 64 rows in bf16, timing both
+   in paired runs of alternating order with the capture time, the
+   launches a pane and the peak device memory; the itfi Gateway runs
+   above include two pooled runs with the loop, whose responses must be
+   bit for bit the graph's;
+13. sampled decode (``ServingEngine.sample`` at temperature 0.8): equal to
+   ``argmax(noise + logits / T)`` for a given noise, and a chi-square
+   test of 2e5 draws from the card's generator on one row against
+   ``softmax(logits / T)``;
+14. the online trainer on the full-width ``itfi-ranker`` over the feature
+   plane's event log with fresh events appended: a few steps by hand,
+   a full patch and then an ``("embed",)`` delta patch, each through its
+   bytes and ``Gateway.install_patch`` into a pooled Gateway whose slate
+   graph is warm; each following wave must be bit for bit what a cold
+   pooled Gateway built from the trainer's weights serves;
+15. the trainer's background worker attached to that Gateway while it
+   serves waves that capture new slate graphs: patches land between
+   panes, each pane serves one model version;
+16. ``save_checkpoint``/``load_checkpoint`` of the trained full-width
+   params with the port's pure-Python msgpack codec: every leaf, bf16
+   included, bit for bit.
 
 It needs a CUDA device: without one it exits non-zero and prints no result.
 The line before the last is the card's name and power limit; the last line
@@ -68,6 +93,7 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -101,6 +127,15 @@ HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int32": 67e12}
 TOL = {"bfloat16": 3e-2, "float32": 2e-5}    # as tests/test_kernels.py
 E2E_TOL = 1e-4
+# decode_slate's graph against its loop: paired runs, alternating order
+GRAPH_PAIRS = 10
+# ... and the slate lengths of the graphs captured after it, each over the
+# same ring buffers
+GRAPH_MORE_LENS = (3, 5, 7)
+# sampled decode: temperature, draws of the chi-square test (in batches)
+SAMPLE_T, SAMPLE_DRAWS, SAMPLE_BATCH = 0.8, 200_000, 10_000
+# the online trainer: its batch and window, the users of the served wave
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_USERS = 256, 256, 512
 
 
 def card() -> str:
@@ -938,11 +973,13 @@ def compare_token_paths_fp32(dev, cfg, inputs, plain, rows=SERVE_BATCH,
         for module, name, fn in plain:
             stack.enter_context(mock.patch.object(module, name, fn))
         p_pre, p_state = first_state()
-        p_slate = eng.decode_slate(p_state, p_state["first_logits"],
-                                   SLATE_LEN)
+        # the eager loop: a graph captured under these patches would keep
+        # the plain versions for every later replay
+        p_slate = eng._decode_slate_loop(p_state, p_state["first_logits"],
+                                         SLATE_LEN)
         p_picks, p_logits, gaps = steps(p_state)
     if not np.array_equal(torch.stack(p_picks, 1).cpu().numpy(), p_slate):
-        raise SystemExit("the plain path's step loop and decode_slate "
+        raise SystemExit("the plain path's step loop and _decode_slate_loop "
                          "disagree")
     k_pre, k_state = first_state()
     k_slate = eng.decode_slate(k_state, k_state["first_logits"], SLATE_LEN)
@@ -974,6 +1011,155 @@ def compare_token_paths_fp32(dev, cfg, inputs, plain, rows=SERVE_BATCH,
     if (flipped & separated).any():
         raise SystemExit("a token-path slate differs on a row whose picks "
                          "are separated by more than the tolerance")
+
+
+def graph_vs_loop(eng, state, label, gpu, pairs=GRAPH_PAIRS):
+    """``decode_slate`` (the captured graph) against ``_decode_slate_loop``
+    on one pane's inject state: the capture (first call), then ``pairs``
+    paired runs in alternating order, every slate bit for bit the loop's;
+    host-clock ms of each (the slate's copy to the host ends both), the
+    launches a pane (the graph's captured launches, counted at each
+    replay, against the loop's, and against the kernels a profiler trace
+    of one replay holds) and the peak device memory. Then the graphs of
+    GRAPH_MORE_LENS slate lengths, captured over the same ring buffers:
+    their slates are the first picks of the loop's (greedy decode is
+    prefix-stable), and neither the device memory in use nor its peak
+    may grow by an eighth of the ring buffers' bytes (one more copy of
+    the rings per length is the fault this rules out)."""
+    import torch
+    from repro_torch.kernels import launch_counters
+
+    first = state["first_logits"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = eng._decode_slate_loop(state, first, SLATE_LEN)
+    if not np.array_equal(eng.decode_slate(state, first, SLATE_LEN), want):
+        raise SystemExit(f"slate graph {label}: the capture call's slate "
+                         f"differs from the eager loop's")
+    stats = eng.slate_graph_stats()[(SLATE_LEN, tuple(first.shape))]
+    fns = {"graph": lambda: eng.decode_slate(state, first, SLATE_LEN),
+           "loop": lambda: eng._decode_slate_loop(state, first, SLATE_LEN)}
+    ops = launch_counters()
+    launches = {}
+    for name, fn in fns.items():
+        before = {n: op.launches for n, op in ops.items()}
+        fn()
+        launches[name] = {n: op.launches - before[n] for n, op in ops.items()
+                          if op.launches != before[n]}
+    if not launches["graph"] == launches["loop"] == stats.launches:
+        raise SystemExit(f"slate graph {label}: launches a pane, graph "
+                         f"{launches['graph']}, loop {launches['loop']}, "
+                         f"captured {stats.launches}")
+    traced = replay_kernels(fns["graph"], stats.launches)
+    if traced != stats.launches:
+        raise SystemExit(f"slate graph {label}: a traced replay ran the "
+                         f"kernels {traced}, the capture recorded "
+                         f"{stats.launches}")
+    ms = {"graph": [], "loop": []}
+    for i in range(pairs):
+        for name in (("graph", "loop") if i % 2 == 0 else ("loop", "graph")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fns[name]()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(out, want):
+                raise SystemExit(f"slate graph {label}: a {name} slate "
+                                 f"differs from the first loop's")
+    g, lp = np.array(ms["graph"]), np.array(ms["loop"])
+    wins = int((g < lp).sum())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"slate graph {label}: capture (warm-up run and capture; the "
+          f"ring buffers come from the pane shape's first finalize) "
+          f"{stats.capture_ms:.2f} ms; decode_slate({SLATE_LEN}) graph "
+          f"median {np.median(g):.3f} ms (min {g.min():.3f}, max "
+          f"{g.max():.3f}), loop median {np.median(lp):.3f} ms (min "
+          f"{lp.min():.3f}, max {lp.max():.3f}) over {pairs} paired runs in "
+          f"alternating order (host clock, synchronised); graph faster in "
+          f"{wins} of {pairs} pairs; every slate bit for bit the loop's; "
+          f"launches a pane {stats.launches} (captured x 1 replay, as the "
+          f"loop's and as a profiler trace of one replay holds); ring "
+          f"buffers {stats.ring_bytes / 1e9:.3f} GB; peak device memory "
+          f"{peak:.2f} GB [{gpu}]")
+    print(f"slate graph {label} ms graph {[round(float(x), 3) for x in g]} "
+          f"loop {[round(float(x), 3) for x in lp]}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fns["graph"]()
+    base_now = torch.cuda.memory_allocated()
+    base_peak = torch.cuda.max_memory_allocated()
+    graphs0 = len(eng.slate_graph_stats())
+    capture_ms = []
+    for n in GRAPH_MORE_LENS:
+        got = eng.decode_slate(state, first, n)
+        if not np.array_equal(got, want[:, :n]):
+            raise SystemExit(f"slate graph {label}: the {n}-slate is not "
+                             f"the first {n} picks of the loop's")
+        capture_ms.append(
+            eng.slate_graph_stats()[(n, tuple(first.shape))].capture_ms)
+    grow_now = torch.cuda.memory_allocated() - base_now
+    grow_peak = torch.cuda.max_memory_allocated() - base_peak
+    limit = stats.ring_bytes // 8
+    print(f"slate graph {label}: {len(eng.slate_graph_stats()) - graphs0} "
+          f"more graphs (slate lengths {list(GRAPH_MORE_LENS)}, captures "
+          f"{[round(x, 2) for x in capture_ms]} ms) over the same ring "
+          f"buffers: device memory in use grew {grow_now} bytes, its peak "
+          f"{grow_peak} bytes over a replay's (limit {limit} bytes each, an"
+          f" eighth of the rings) [{gpu}]")
+    if len(eng.slate_graph_stats()) - graphs0 != len(GRAPH_MORE_LENS) \
+            or grow_now >= limit or grow_peak >= limit:
+        raise SystemExit(f"slate graph {label}: a new slate length took "
+                         f"more device memory than the limit")
+    return {"graph_ms": g, "loop_ms": lp}
+
+
+def replay_kernels(fn, names, tries=3):
+    """{name: launches} of the kernels ``names`` in a profiler trace of
+    one ``fn()`` (a graph replay): the events named ``<name>_kernel``. A
+    trace that holds no device time (the profiler now and then returns
+    one) is taken again, up to ``tries`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages() if _device_us(e) > 0]
+        if evts:
+            return {n: k for n, k in (
+                (n, sum(e.count for e in evts if f"{n}_kernel" in e.key))
+                for n in names) if k}
+    raise SystemExit("the profiler recorded no device time in "
+                     f"{tries} traces of a slate replay")
+
+
+def run_slate_graph(dev, gpu, plat, params, now):
+    """The itfi graph-vs-loop phase on a hit pane of 256 fresh users (the
+    state a pooled hit pane hands ``decode_slate``: prefill, then inject
+    of the fresh suffix), in bf16 and in fp32."""
+    import torch
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    cfg = plat.model_cfg
+    users = fresh_users(plat.injector, now, np.random.RandomState(SEED + 6),
+                        SERVE_BATCH)
+    scfg = ServingConfig(max_batch=SERVE_BATCH, prefill_len=PANE_PREFILL,
+                         inject_len=PANE_INJECT, cache_capacity=PANE_CAPACITY)
+    fp32 = init_params(cfg, torch.Generator().manual_seed(SEED),
+                       torch.float32, dev)
+    for dtype, p in (("bf16", params), ("fp32", fp32)):
+        eng = ServingEngine(cfg, p, scfg, device=dev)
+        hist, sfx = pane_inputs(eng, plat.injector, users, now)
+        pre = eng.prefill(*hist)
+        state = eng.inject(pre, *sfx, fallback_logits=pre["logits"][:, -1])
+        del pre
+        graph_vs_loop(eng, state, f"itfi {dtype} hit pane of {SERVE_BATCH}",
+                      gpu)
+        del eng, state
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------------
@@ -1056,11 +1242,8 @@ def fresh_users(injector, now, rng, n, exclude=()):
 
 def kernel_ops(names):
     """{name: the kernel's wrapper} for the launch counters."""
-    from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan
-    ops = {"flash_attention": flash_attention,
-           "decode_attention": decode_attention, "ssd_scan": ssd_scan}
+    from repro_torch.kernels import launch_counters
+    ops = launch_counters()
     return {n: ops[n] for n in names}
 
 
@@ -1222,16 +1405,27 @@ def compare_gateway_fp32(dev, cfg, injector, users, now, pool=False):
                          "picks are separated by more than the tolerance")
 
 
-GW_BACKENDS = ("host LRU", "pool", "pool", "host LRU")
+# "pool loop": the pool with the eager slate loop in place of the graph
+GW_BACKENDS = ("host LRU", "pool", "pool loop", "pool loop", "pool",
+               "host LRU")
 
 
 def gateway_config(backend, entries):
     """``ServerConfig`` of a Gateway that caches ``entries`` prefill
-    states in the host LRU or (``backend == "pool"``) the state pool."""
+    states in the host LRU or (``backend`` "pool" or "pool loop") the
+    state pool."""
     from repro_torch.serving import ServerConfig
-    budget = ({"pool_slots": entries} if backend == "pool"
+    budget = ({"pool_slots": entries} if backend.startswith("pool")
               else {"cache_entries": entries})
     return ServerConfig(slate_len=SLATE_LEN, **budget)
+
+
+def slate_loop(eng, on=True):
+    """A context in which ``eng.decode_slate`` is its eager loop (``on``),
+    or nothing changes."""
+    if not on:
+        return contextlib.nullcontext()
+    return mock.patch.object(eng, "decode_slate", eng._decode_slate_loop)
 
 
 def gateway_backend(eng, injector, backend, hit_users, miss_users, now,
@@ -1240,7 +1434,15 @@ def gateway_backend(eng, injector, backend, hit_users, miss_users, now,
     each with GW_CACHE_ENTRIES entries): warm the hit users, a hit wave
     that must be all hits on the inject path, the same wave again, and a
     miss wave that must be all prefills. Returns (hit tickets, miss
-    tickets, the launches of the timed warm, hit and miss)."""
+    tickets, the launches of the timed warm, hit and miss). A "pool loop"
+    backend serves with the eager slate loop."""
+    with slate_loop(eng, backend.endswith("loop")):
+        return _gateway_backend(eng, injector, backend, hit_users,
+                                miss_users, now, gpu)
+
+
+def _gateway_backend(eng, injector, backend, hit_users, miss_users, now,
+                     gpu):
     import torch
     from repro_torch.serving import Gateway
 
@@ -1634,6 +1836,14 @@ def run_mamba2_path(dev, gpu, plat, now, report):
     report["ssd_scan"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=bound_by)
     del pre_calls, inj_calls
+    users = fresh_users(plat.injector, now, np.random.RandomState(SEED + 7),
+                        MAMBA_BATCH)
+    hist, sfx = pane_inputs(eng, plat.injector, users, now)
+    state = eng.prefill(*hist)
+    state = eng.inject(state, *sfx, fallback_logits=state["logits"][:, -1])
+    graph_vs_loop(eng, state, f"mamba2 bf16 hit pane of {MAMBA_BATCH}", gpu)
+    del state
+    torch.cuda.empty_cache()
     profile_pane(eng, inputs[1], gpu, label="mamba2")
     del eng, params
     torch.cuda.empty_cache()
@@ -1670,6 +1880,11 @@ def run_mamba2_gateway(dev, gpu, plat, now):
     hit_users = fresh_users(plat.injector, now, rng, MAMBA_GW_USERS)
     miss_users = fresh_users(plat.injector, now, rng, MAMBA_GW_USERS,
                              exclude=hit_users)
+    # one direct pane of other users captures the slate graph outside the
+    # timed waves
+    spare = fresh_users(plat.injector, now, rng, MAMBA_BATCH,
+                        exclude=np.concatenate([hit_users, miss_users]))
+    serve_pane(eng, *pane_inputs(eng, plat.injector, spare, now))
     gw = Gateway(eng, plat.injector,
                  gateway_config("pool", MAMBA_POOL_SLOTS))
     kernels = ("ssd_scan",)
@@ -1682,6 +1897,17 @@ def run_mamba2_gateway(dev, gpu, plat, now):
     if hit_delta["hits"] != MAMBA_GW_USERS or paths != {"inject"}:
         raise SystemExit(f"mamba2 gateway hit wave: {hit_delta}, paths "
                          f"{sorted(paths)}")
+    with slate_loop(eng):
+        hit_loop, loop_launches, _, _ = gateway_wave(
+            gw, hit_users, now, "mamba2 pool hit (slate loop)", gpu,
+            clock=PhaseClock(), kernels=kernels)
+    if any(not np.array_equal(a.response.slate, b.response.slate)
+           or not np.array_equal(a.response.scores, b.response.scores)
+           for a, b in zip(hit_loop, hit)):
+        raise SystemExit("mamba2 gateway: the slate loop's hit wave differs "
+                         "from the graph's")
+    print("mamba2 gateway: the hit wave with the slate loop bit for bit the "
+          "graph's")
     miss, miss_launches, _, miss_delta = gateway_wave(
         gw, miss_users, now, "mamba2 pool miss", gpu, clock=PhaseClock(),
         kernels=kernels)
@@ -1704,6 +1930,15 @@ def run_mamba2_gateway(dev, gpu, plat, now):
     if got != want:
         raise SystemExit("mamba2 gateway: ssd_scan launches differ from "
                          "the expected count")
+    with slate_loop(eng):
+        miss_loop, miss_loop_launches, _, _ = gateway_wave(
+            gw, hit_users, now, "mamba2 pool miss (slate loop)", gpu,
+            clock=PhaseClock(), kernels=kernels)
+    if {t.response.telemetry.path for t in miss_loop} != {"prefill"}:
+        raise SystemExit("mamba2 gateway: the slate loop's miss wave left "
+                         "the prefill path")
+    got["loop waves"] = (loop_launches["ssd_scan"]
+                         + miss_loop_launches["ssd_scan"])
     check_gateway_slates(hit, cfg.vocab_size, "mamba2 hit")
     check_gateway_slates(miss, cfg.vocab_size, "mamba2 miss")
     differ = 0
@@ -1720,9 +1955,285 @@ def run_mamba2_gateway(dev, gpu, plat, now):
     if differ:
         raise SystemExit("mamba2 gateway: a hit slate differs from the "
                          "engine's direct path")
-    del gw, eng, params, hit, miss
+    del gw, eng, params, hit, miss, hit_loop, miss_loop
     torch.cuda.empty_cache()
     return {"ssd_scan": sum(got.values())}
+
+
+# ----------------------------------------------------------------------
+# Sampled decode, the online trainer, its patches, checkpoints
+# ----------------------------------------------------------------------
+
+def run_sampled_decode(dev, gpu, plat, params, now):
+    """``ServingEngine.sample`` at temperature SAMPLE_T on an itfi pane's
+    first logits: with given noise it must equal ``argmax(noise + logits
+    / T)``; from the card's generator, SAMPLE_DRAWS draws on one row must
+    pass a chi-square test against ``softmax(logits / T)`` at p > 1e-3
+    (categories expected below 5 draws pooled into one)."""
+    import torch
+    from scipy import stats
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    cfg = plat.model_cfg
+    eng = ServingEngine(cfg, params, ServingConfig(
+        max_batch=SERVE_BATCH, prefill_len=PANE_PREFILL,
+        inject_len=PANE_INJECT, cache_capacity=PANE_CAPACITY,
+        temperature=SAMPLE_T), device=dev)
+    users = fresh_users(plat.injector, now, np.random.RandomState(SEED + 8),
+                        SERVE_BATCH)
+    hist, sfx = pane_inputs(eng, plat.injector, users, now)
+    pre = eng.prefill(*hist)
+    logits = eng.inject(pre, *sfx, fallback_logits=pre["logits"][:, -1])[
+        "first_logits"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    u = torch.rand(logits.shape, generator=gen, device=dev)
+    noise = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    got = eng.sample(logits, noise=noise)
+    if not torch.equal(got, torch.argmax(noise + logits / SAMPLE_T,
+                                         -1).to(torch.int32)):
+        raise SystemExit("sample: with given noise it is not "
+                         "argmax(noise + logits / T)")
+    row = logits[:1].expand(SAMPLE_BATCH, -1).contiguous()
+    counts = torch.zeros(cfg.vocab_padded, dtype=torch.int64, device=dev)
+    for _ in range(SAMPLE_DRAWS // SAMPLE_BATCH):
+        counts += torch.bincount(eng.sample(row, generator=gen).long(),
+                                 minlength=cfg.vocab_padded)
+    counts = counts.cpu().numpy()
+    if counts[cfg.vocab_size:].any():
+        raise SystemExit("sample: a draw landed in the padded vocabulary")
+    probs = torch.softmax(logits[0, :cfg.vocab_size].double() / SAMPLE_T,
+                          -1).cpu().numpy()
+    expected = probs * SAMPLE_DRAWS
+    big = expected >= 5
+    obs = np.append(counts[:cfg.vocab_size][big],
+                    counts[:cfg.vocab_size][~big].sum())
+    exp = np.append(expected[big], expected[~big].sum())
+    if exp[-1] < 5:
+        obs, exp = obs[:-1], exp[:-1]
+        exp = exp * obs.sum() / exp.sum()
+    chi2, p = stats.chisquare(obs, exp)
+    ms = time_ms(lambda: eng.sample(logits, generator=gen))
+    print(f"sampled decode at T={SAMPLE_T}: equal to argmax(noise + logits "
+          f"/ T) on {SERVE_BATCH} rows for given noise; {SAMPLE_DRAWS} draws"
+          f" of one row from the card's generator against softmax(logits / "
+          f"T): chi-square {chi2:.1f} over {len(obs)} categories, p-value "
+          f"{p:.4g} (must be > 1e-3); sample() {ms:.4f} ms a pane of "
+          f"{SERVE_BATCH} x {cfg.vocab_padded} (CUDA events) [{gpu}]")
+    if not p > 1e-3:
+        raise SystemExit("sample: the draws do not follow softmax(logits / "
+                         "T)")
+
+
+def feed_log(log, rng, n, now, n_items):
+    """``n`` seeded events appended to the feature plane's event log, after
+    ``now``: new data for the trainer that no serving read at ``now``
+    sees."""
+    ts = np.sort(rng.randint(now + 1, now + 3600, n))
+    log.extend(rng.randint(0, N_USERS, n), rng.randint(0, n_items, n), ts)
+
+
+def patched_wave(gw, cold_params, users, now, label, gpu):
+    """A wave of ``users`` on ``gw`` after a patch install, and the same
+    wave on a cold pooled Gateway over an engine built from
+    ``cold_params``: every response bit for bit equal."""
+    import torch
+    from repro_torch.serving import Gateway, ServingEngine
+
+    hot, _, hot_s, _ = gateway_wave(gw, users, now, f"{label} hot", gpu)
+    cold = Gateway(ServingEngine(gw.engine.cfg, cold_params, gw.engine.scfg,
+                                 device=gw.engine.device),
+                   gw.injector, gateway_config("pool", len(users)))
+    want, _, cold_s, _ = gateway_wave(cold, users, now, f"{label} cold", gpu)
+    version = gw.stats().model_version
+    if any(t.response.telemetry.model_version != version for t in hot):
+        raise SystemExit(f"{label}: a response of another model version")
+    if any(not np.array_equal(a.response.slate, b.response.slate)
+           or not np.array_equal(a.response.scores, b.response.scores)
+           for a, b in zip(hot, want)):
+        raise SystemExit(f"{label}: the hot-swapped Gateway differs from a "
+                         f"cold one built from the patched weights")
+    print(f"{label}: every response of {len(users)} bit for bit a cold "
+          f"pooled Gateway's from the patched weights (model version "
+          f"{version}; {hot_s * 1e3:.2f} ms hot, {cold_s * 1e3:.2f} ms cold "
+          f"incl. the cold graph's capture)")
+    del cold
+    torch.cuda.empty_cache()
+
+
+def train_and_patch(trainer, gw, users, now, label, gpu, steps, feed):
+    """``steps`` trainer steps by hand (the first reads every event of the
+    log, fresh events are fed before each later one), ``make_patch``, its bytes and back, ``install_patch`` into
+    ``gw`` and the hot-vs-cold wave."""
+    import torch
+    from repro_torch.training import WeightPatch
+
+    losses, step_ms = [], []
+    for i in range(steps):
+        if i:
+            feed()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if m is None or not np.isfinite(m["loss"]):
+            raise SystemExit(f"{label}: a train step ran on no batch or "
+                             f"gave a non-finite loss: {m}")
+        losses.append(m["loss"])
+    # where a step's time goes: a fresh view of the log and its batch (host),
+    # and the train step alone on that batch (the card; not applied)
+    from repro_torch.training import make_train_step
+    t0 = time.perf_counter()
+    view = trainer.log.view()
+    new_users, _, new_ts = view.events_since(view.n_events - TRAIN_BATCH)
+    batch = trainer._build_batch(view, new_users, new_ts)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    step_fn = make_train_step(trainer.model_cfg, trainer.train_cfg)
+    alone = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(trainer.params, trainer._opt, batch)
+        torch.cuda.synchronize()
+        alone.append((time.perf_counter() - t0) * 1e3)
+    patch = trainer.make_patch()
+    blob = patch.to_bytes()
+    back = WeightPatch.from_bytes(blob)
+    if back.to_bytes() != blob:
+        raise SystemExit(f"{label}: the patch does not round-trip its bytes")
+    n = gw.install_patch(back)
+    print(f"{label}: {steps} train steps of {TRAIN_BATCH} x {TRAIN_SEQ} on "
+          f"the card, ms {[round(x, 2) for x in step_ms]} (host clock, "
+          f"synchronised; the first includes reading all "
+          f"{trainer.log.n_events} events), loss "
+          f"{[round(x, 4) for x in losses]}; of a step, the log view and "
+          f"batch {host_ms:.1f} ms (host) and the train step alone "
+          f"{[round(x, 2) for x in alone]} ms (the card, synchronised); "
+          f"patch v{patch.version} of "
+          f"{n} leaves, {patch.n_params} params, {len(blob)} bytes; "
+          f"patch_install_max_ms {gw.stats().patch_install_max_ms:.3f} "
+          f"[{gpu}]")
+    patched_wave(gw, trainer.params, users, now, label, gpu)
+
+
+def run_online_trainer(dev, gpu, plat, params, now):
+    """The online trainer on the full-width itfi-ranker over the feature
+    plane's event log, its patches hot-swapped into a pooled Gateway with
+    a warm slate graph, then its background worker while that Gateway
+    serves, then a checkpoint of the trained weights."""
+    import torch
+    from repro_torch.models.common import flatten_with_keystr
+    from repro_torch.serving import Gateway, Request, ServingConfig, \
+        ServingEngine
+    from repro_torch.training import (OnlineTrainer, OnlineTrainerConfig,
+                                      load_checkpoint, save_checkpoint)
+
+    cfg = plat.model_cfg
+    n_items = cfg.vocab_size - 256
+    rng = np.random.RandomState(SEED + 9)
+    users = fresh_users(plat.injector, now, rng, TRAIN_USERS)
+    eng = ServingEngine(cfg, params, ServingConfig(
+        max_batch=SERVE_BATCH, prefill_len=PANE_PREFILL,
+        inject_len=PANE_INJECT, cache_capacity=PANE_CAPACITY), device=dev)
+    gw = Gateway(eng, plat.injector, gateway_config("pool", TRAIN_USERS))
+    gw.warm(users, now)
+    gateway_wave(gw, users, now, "trainer pool warm graph", gpu)
+    log = plat.injector.batch.log
+    feed = functools.partial(feed_log, log, rng, 4 * TRAIN_BATCH, now,
+                             n_items)
+    tcfg = dict(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    t0 = time.perf_counter()
+    trainer = OnlineTrainer(cfg, params, log, device=dev,
+                            cfg=OnlineTrainerConfig(**tcfg))
+    print(f"online trainer: {cfg.name} at full width, bf16 weights with an "
+          f"f32 master on the card, made in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms; AdamW "
+          f"{trainer.train_cfg.adamw}")
+    train_and_patch(trainer, gw, users, now, "online patch (every leaf)",
+                    gpu, steps=3, feed=feed)
+    delta = OnlineTrainer(cfg, trainer.params, log, device=dev,
+                          base_version=gw.stats().model_version,
+                          cfg=OnlineTrainerConfig(trainable=("embed",),
+                                                  **tcfg))
+    feed()
+    train_and_patch(delta, gw, users, now, "online patch (embed delta)",
+                    gpu, steps=2, feed=feed)
+
+    # the background worker while the Gateway serves panes of new slate
+    # lengths (new graph captures) and replays them
+    worker = OnlineTrainer(cfg, delta.params, log, device=dev,
+                           base_version=gw.stats().model_version,
+                           step_hook=feed,
+                           cfg=OnlineTrainerConfig(interval_s=0.0, **tcfg))
+    base = worker.version
+    graphs0, applied0 = len(eng.slate_graph_stats()), \
+        gw.stats().patches_applied
+    gw.attach_trainer(worker.start())
+    tickets, t_end = [], time.perf_counter() + 120
+    try:
+        for k, slate_len in enumerate((7, 5, 3, 7, 5, 3)):
+            tickets += gw.submit_many([
+                Request(user=int(u), now=now, slate_len=slate_len)
+                for u in users])
+            gw.flush(now)
+        while gw.stats().patches_applied == applied0 \
+                and time.perf_counter() < t_end:
+            time.sleep(0.05)
+            gw.tick(now)
+        tickets += gw.submit_many([Request(user=int(u), now=now)
+                                   for u in users])
+        gw.flush(now)
+    finally:
+        worker.stop(timeout=120)
+    gw.attach_trainer(None)
+    by_pane = {}
+    for t in tickets:
+        by_pane.setdefault(t.response.telemetry.pane_id, set()).add(
+            t.response.telemetry.model_version)
+    mixed = [p for p, v in by_pane.items() if len(v) != 1]
+    st = gw.stats()
+    print(f"online worker: {worker.steps} steps and {worker.version - base}"
+          f" patches on its thread while the Gateway served {len(by_pane)} "
+          f"panes; {st.patches_applied - applied0} patches installed between"
+          f" panes, model version {st.model_version}; "
+          f"{len(eng.slate_graph_stats()) - graphs0} slate graphs captured "
+          f"while it"
+          f" ran; versions seen {sorted(set().union(*by_pane.values()))}; "
+          f"panes serving more than one version: {len(mixed)}; "
+          f"patch_install_max_ms {st.patch_install_max_ms:.3f} [{gpu}]")
+    if mixed or st.patches_applied == applied0 \
+            or len(eng.slate_graph_stats()) - graphs0 != 3:
+        raise SystemExit("online worker: no patch landed, a pane mixed "
+                         "versions, or a slate graph was not captured")
+    check_gateway_slates(tickets[-len(users):], cfg.vocab_size,
+                         "online worker")
+
+    path = os.path.join(ROOT, "build", "chip_smoke_checkpoint.msgpack")
+    tree = worker.params
+    t0 = time.perf_counter()
+    save_checkpoint(path, tree, step=worker.steps,
+                    metadata={"arch": cfg.name})
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back, step, meta = load_checkpoint(path)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    size = os.path.getsize(path)
+    os.unlink(path)
+    flat = dict(flatten_with_keystr(back))
+    for key, leaf in flatten_with_keystr(tree):
+        got = flat[key]
+        if got.dtype != leaf.dtype or not torch.equal(
+                got.view(torch.int16) if got.dtype == torch.bfloat16
+                else got, (leaf.view(torch.int16) if leaf.dtype ==
+                           torch.bfloat16 else leaf).cpu()):
+            raise SystemExit(f"checkpoint: leaf {key} does not round-trip")
+    print(f"checkpoint: {len(flat)} leaves of the trained {cfg.name} "
+          f"({', '.join(sorted({str(v.dtype) for v in flat.values()}))}), "
+          f"{size} bytes, saved in {save_ms:.1f} ms and loaded in "
+          f"{load_ms:.1f} ms with the pure-Python msgpack codec (host); "
+          f"every leaf bit for bit; step {step}, metadata {meta}")
+    del gw, eng
+    torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -1758,10 +2269,13 @@ def main() -> int:
     launches, plat, params, now = run_main_path(dev, gpu, report)
     check_decode_attention(dev, report)
     token_launches = run_token_path(dev, gpu, plat, params, now, report)
+    run_slate_graph(dev, gpu, plat, params, now)
     gateway_launches = run_gateway_path(dev, gpu, plat, params, now)
     check_ssd_scan(dev, report)
     ssm_launches = run_mamba2_path(dev, gpu, plat, now, report)
     ssm_gateway_launches = run_mamba2_gateway(dev, gpu, plat, now)
+    run_sampled_decode(dev, gpu, plat, params, now)
+    run_online_trainer(dev, gpu, plat, params, now)
     missing = set(names) ^ set(report)
     if missing:
         raise SystemExit(f"kernels without a check: {sorted(missing)}")

@@ -17,6 +17,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -87,3 +89,16 @@ def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise if autograd would record through a kernel launch: the kernels
+    write into fresh tensors through ``ctypes`` and have no backward, so
+    a gradient upstream of them would be silently missing. Training runs
+    the plain versions (``forward(use_kernels=False)``)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; an input requires "
+            f"grad, so run the plain path (forward(use_kernels=False)) or "
+            f"call under torch.no_grad()")

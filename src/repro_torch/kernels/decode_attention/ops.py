@@ -41,6 +41,7 @@ def decode_attention(q, k_cache, v_cache, pos, stored):
     ``ref.decode_attention_ref``."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, pos, stored)
+    _build.check_no_grad("decode_attention", q, k_cache, v_cache)
     dev = q.device
     b, one, nq, hd = q.shape
     w, nkv = k_cache.shape[1], k_cache.shape[2]

@@ -40,6 +40,7 @@ def flash_attention(q, k, v, qpos, kpos, kvalid, *, window: int = 0):
     window (when window > 0) and kvalid[j]; see ``ref.attention_ref``."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, qpos, kpos, kvalid, window=window)
+    _build.check_no_grad("flash_attention", q, k, v)
     dev = q.device
     b, sq, nq, hd = q.shape
     sk, nkv = k.shape[1], k.shape[2]

@@ -47,6 +47,7 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256, init_state=None):
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, A, B, C, D, chunk=chunk,
                            init_state=init_state)
+    _build.check_no_grad("ssd_scan", x, dt, A, B, C, D, init_state)
     dev = x.device
     ds = B.shape[-1]
     if x.dtype not in DTYPES or hp not in HEAD_DIMS or ds not in STATE_DIMS \

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.common import scaled_init
 from repro_torch.models.rope import apply_rope
 
@@ -55,6 +56,7 @@ def attention_full(params, x, positions, cfg: ModelConfig, *,
                    prefix_kv: Optional[Dict[str, torch.Tensor]] = None,
                    prefix_positions: Optional[torch.Tensor] = None,
                    prefix_valid: Optional[torch.Tensor] = None,
+                   use_kernel: bool = True,
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal (optionally sliding-window) self-attention over a full sequence.
 
@@ -66,6 +68,10 @@ def attention_full(params, x, positions, cfg: ModelConfig, *,
     computed and its queries attend to prefix + suffix. The prefix keys'
     positions default to their slot indices 0..Sp-1, as in the JAX
     package. The returned K/V cover prefix + suffix.
+
+    ``use_kernel=False`` runs the plain ``attention_ref`` on any device, as
+    the JAX package trains through plain XLA attention: the kernel has no
+    backward.
     """
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, positions, cfg)
@@ -83,9 +89,10 @@ def attention_full(params, x, positions, cfg: ModelConfig, *,
         pval = (prefix_valid.to(torch.bool) if prefix_valid is not None
                 else torch.ones((b, sp), dtype=torch.bool, device=x.device))
         kvalid = torch.cat([pval, kvalid], dim=1)
-    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          qpos, kpos.contiguous(), kvalid.contiguous(),
-                          window=cfg.sliding_window)
+    attend = flash_attention if use_kernel else attention_ref
+    out = attend(q.contiguous(), k.contiguous(), v.contiguous(), qpos,
+                 kpos.contiguous(), kvalid.contiguous(),
+                 window=cfg.sliding_window)
     y = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
     return y, {"k": k, "v": v}
 
@@ -168,7 +175,9 @@ def attention_decode(params, x, pos, cache, cfg: ModelConfig, *,
             else (cache["k"].clone(), cache["v"].clone()))
     k[rows, slot] = k_new[:, 0]
     v[rows, slot] = v_new[:, 0]
-    stored[rows, slot] = True
+    # a device tensor, not the scalar True: a scalar value is a host copy,
+    # which a CUDA graph capture refuses
+    stored[rows, slot] = torch.ones_like(slot, dtype=torch.bool)
     out = decode_attention(q.contiguous(), k, v, pos.contiguous(), stored)
     y = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
     return y, {"k": k, "v": v, "valid": stored}

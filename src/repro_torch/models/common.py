@@ -1,4 +1,5 @@
-"""Shared model utilities: the device rule and the initializers."""
+"""Shared model utilities: the device rule, the initializers and the
+parameter tree's leaf paths."""
 from __future__ import annotations
 
 import math
@@ -28,3 +29,27 @@ def normal_init(gen: torch.Generator, shape, std, dtype, device):
 def scaled_init(gen, shape, fan_in, dtype, device):
     return normal_init(gen, shape, 1.0 / math.sqrt(max(fan_in, 1)), dtype,
                        device)
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of the same keys."""
+    return {k: tree_map(fn, *(t[k] for t in trees))
+            if isinstance(trees[0][k], dict) else fn(*(t[k] for t in trees))
+            for k in trees[0]}
+
+
+def flatten_with_keystr(tree, prefix: str = ""):
+    """``(path, leaf)`` pairs of a tree of nested dicts (and lists or
+    tuples), in ``jax.tree_util.tree_flatten_with_path``'s order (dict keys
+    sorted) and with ``jax.tree_util.keystr``'s text for each path:
+    ``"['blocks']['pos0']['attn']['wq']"``. The leaf naming that weight
+    patches use on both sides (``training/online.py``,
+    ``ServingEngine.apply_patch``)."""
+    if isinstance(tree, dict):
+        items = ((f"[{k!r}]", tree[k]) for k in sorted(tree))
+    elif isinstance(tree, (list, tuple)):
+        items = ((f"[{i}]", v) for i, v in enumerate(tree))
+    else:
+        return [(prefix, tree)]
+    return [pair for key, v in items
+            for pair in flatten_with_keystr(v, prefix + key)]

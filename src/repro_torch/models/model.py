@@ -17,10 +17,12 @@ cache builders ``init_cache`` and ``cache_from_prefill``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -126,7 +128,7 @@ def _take(tree, r: int):
 
 def _layer(lp, x, positions, valid, cfg: ModelConfig, *, kind="attn",
            mlp_kind="dense", mode="forward", cache=None, prefix_valid=None,
-           inplace=False):
+           inplace=False, use_kernels=True):
     """One block. Returns (x, cache_out): for "prefill" and "extend" the
     layer's K/V (prefix + suffix) or its SSM tails and state, for "decode"
     its updated cache, None for "forward"."""
@@ -138,14 +140,14 @@ def _layer(lp, x, positions, valid, cfg: ModelConfig, *, kind="attn",
         mix, cache_out = attn_mod.attention_full(
             lp["attn"], h, positions, cfg, valid=valid,
             prefix_kv=cache if mode == "extend" else None,
-            prefix_valid=prefix_valid)
+            prefix_valid=prefix_valid, use_kernel=use_kernels)
     elif mode == "decode":
         mix, cache_out = ssm_mod.ssm_decode(lp["ssm"], h, cache, cfg,
                                             inplace=inplace)
     else:
         mix, cache_out = ssm_mod.ssm_forward(
             lp["ssm"], h, cfg, cache=cache if mode == "extend" else None,
-            valid=valid)
+            valid=valid, use_kernel=use_kernels)
     x = x + mix
     if mlp_kind == "dense":
         x = x + mlp(lp["mlp"], rmsnorm(lp["norm2"], x, cfg.norm_eps))
@@ -153,21 +155,29 @@ def _layer(lp, x, positions, valid, cfg: ModelConfig, *, kind="attn",
 
 
 def _run_stack(params, x, cfg: ModelConfig, *, mode, positions, valid=None,
-               caches=None, prefix_valid=None, inplace=False):
+               caches=None, prefix_valid=None, inplace=False,
+               use_kernels=True, remat=False):
     """The R x P blocks in order. Returns (x, caches_out) with caches_out
     stacked over R like the JAX scan's output, or None for "forward".
     With ``inplace`` (decode only) the ring writes, conv tails and states
-    go into ``caches``' own tensors, which are returned."""
+    go into ``caches``' own tensors, which are returned. With ``remat``
+    ("forward" only) each block's activations are recomputed in the
+    backward pass instead of kept (``torch.utils.checkpoint``)."""
     pat = pattern_sig(cfg)
     outs = {f"pos{p}": [] for p in range(len(pat))}
     for r in range(cfg.n_layers // len(pat)):
         for p, (kind, mlp_kind) in enumerate(pat):
             key = f"pos{p}"
             cache = None if caches is None else _take(caches[key], r)
-            x, c_out = _layer(_take(params["blocks"][key], r), x, positions,
-                              valid, cfg, kind=kind, mlp_kind=mlp_kind,
-                              mode=mode, cache=cache,
-                              prefix_valid=prefix_valid, inplace=inplace)
+            layer = functools.partial(
+                _layer, _take(params["blocks"][key], r), positions=positions,
+                valid=valid, cfg=cfg, kind=kind, mlp_kind=mlp_kind,
+                mode=mode, cache=cache, prefix_valid=prefix_valid,
+                inplace=inplace, use_kernels=use_kernels)
+            if remat and mode == "forward" and torch.is_grad_enabled():
+                x, c_out = checkpoint(layer, x, use_reentrant=False)
+            else:
+                x, c_out = layer(x)
             outs[key].append(c_out)
     if mode == "forward":
         return x, None
@@ -194,18 +204,25 @@ def _embed(params, tokens):
 
 
 def forward(params, cfg: ModelConfig, tokens, *, positions=None, valid=None,
-            last_only: bool = False) -> torch.Tensor:
+            last_only: bool = False, use_kernels: bool = True,
+            remat: bool = False) -> torch.Tensor:
     """Logits (B, S, Vp) fp32, or (B, 1, Vp) of the last position alone
     with ``last_only`` (same values: norm and head are per position).
 
     tokens (B,S) int; positions (B,S) or (S,), default 0..S-1; valid (B,S)
-    bool key mask (left padding)."""
+    key mask (left padding). ``use_kernels=False`` runs plain attention
+    and the plain SSD scan, the path autograd can differentiate (the
+    kernels have no backward and raise under grad); ``remat`` recomputes
+    each block in the backward pass."""
     _check_supported(cfg)
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
+    if valid is not None:
+        valid = valid.to(torch.bool)    # the training batches' are int32
     x, _ = _run_stack(params, _embed(params, tokens), cfg, mode="forward",
-                      positions=positions, valid=valid)
+                      positions=positions, valid=valid,
+                      use_kernels=use_kernels, remat=remat)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
@@ -291,25 +308,38 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
     return caches
 
 
-def cache_from_prefill(cfg: ModelConfig, caches, capacity: int, valid=None):
+def cache_from_prefill(cfg: ModelConfig, caches, capacity: int, valid=None,
+                       out=None):
     """Prefill (or extend) caches -> decode caches: attention K/V become
     ring caches, SSM tails and states are copied as they are (copies, so
     that an in-place decode leaves the prefill state intact). ``valid``
     (B,S): the pad mask; padded slots stay masked in the ring so decode
-    never attends them."""
+    never attends them.
+
+    ``out``: decode caches of the same shapes to write into (the engine's
+    graph-owned ring buffers), returned; the SSM leaves are then copied
+    once, with no intermediate copy."""
     _check_supported(cfg)
     cap = _capacity(cfg, capacity)
-    out = {}
+    fresh = {} if out is None else None
     for p, (kind, _) in enumerate(pattern_sig(cfg)):
         key = f"pos{p}"
         kv = caches[key]
         if kind == "attn":
-            kv = _stack([attn_mod.cache_from_prefill(_take(kv, r), cap, valid)
-                         for r in range(kv["k"].shape[0])])
+            rings = [attn_mod.cache_from_prefill(_take(kv, r), cap, valid)
+                     for r in range(kv["k"].shape[0])]
+            if out is None:
+                fresh[key] = _stack(rings)
+            else:
+                for r, ring in enumerate(rings):
+                    for name, t in ring.items():
+                        out[key][name][r].copy_(t)
+        elif out is None:
+            fresh[key] = {name: t.clone() for name, t in kv.items()}
         else:
-            kv = {name: t.clone() for name, t in kv.items()}
-        out[key] = kv
-    return out
+            for name, t in kv.items():
+                out[key][name].copy_(t)
+    return fresh if out is None else out
 
 
 def _as_module(tree) -> nn.Module:

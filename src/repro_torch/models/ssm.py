@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 from repro_torch.models.common import normal_init, scaled_init
 
 
@@ -118,6 +119,7 @@ def _project(params, x):
 
 
 def ssm_forward(params, x, cfg: ModelConfig, *, cache=None, valid=None,
+                use_kernel: bool = True,
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Full-sequence Mamba2 mixer. x (B,S,d) -> (y (B,S,d), cache).
 
@@ -129,6 +131,9 @@ def ssm_forward(params, x, cfg: ModelConfig, *, cache=None, valid=None,
     recurrence (dt forced to 0: no decay, no state update), so left-padded
     batches do not contaminate the state. Pad-position outputs are garbage
     and must be masked by the caller.
+
+    ``use_kernel=False`` runs the plain ``ssd_chunked`` on any device (the
+    training path: the kernel has no backward).
     """
     s_cfg = cfg.ssm
     b, s, _ = x.shape
@@ -152,11 +157,12 @@ def ssm_forward(params, x, cfg: ModelConfig, *, cache=None, valid=None,
     if valid is not None:
         dt = dt * valid[..., None].float()               # identity steps
     A = -torch.exp(params["A_log"])
-    y, h_final = ssd_scan(xr.reshape(b, s, nh, hp).contiguous(),
-                          dt.contiguous(), A.contiguous(), Br.contiguous(),
-                          Cr.contiguous(), params["D"].contiguous(),
-                          chunk=s_cfg.chunk_size,
-                          init_state=tails.get("state"))
+    scan = ssd_scan if use_kernel else ssd_chunked
+    y, h_final = scan(xr.reshape(b, s, nh, hp).contiguous(),
+                      dt.contiguous(), A.contiguous(), Br.contiguous(),
+                      Cr.contiguous(), params["D"].contiguous(),
+                      chunk=min(s_cfg.chunk_size, s),
+                      init_state=tails.get("state"))
 
     y = _gated_norm(y.reshape(b, s, -1), z, params["norm_scale"],
                     cfg.norm_eps).to(x.dtype)

@@ -14,22 +14,38 @@ that ``decode`` and ``decode_slate`` use. The engine pads requests to
 fixed shapes (``pad_tokens``). Entry points take numpy arrays or tensors
 and return tensors on the engine's device; ``decode_slate`` returns numpy.
 
-Against the JAX package's engine: no device mesh, no weight patches, no
-sampled decode (``temperature > 0`` raises), and no query chunking (the
-attention kernel streams keys, so ``ServingConfig`` has no ``q_chunk``).
+**The slate as one program.** The JAX package runs a greedy slate as one
+jitted ``lax.scan``. Here, on a CUDA engine, ``decode_slate`` replays a
+``torch.cuda.CUDAGraph`` that holds the whole slate (every pick, mask
+update and ``decode_step``), one graph per slate length and pane shape;
+on the CPU the same body runs eagerly (``_decode_slate_loop``). The
+graphs of one pane shape share one set of ring buffers, and all of an
+engine's graphs share one memory pool, so a new slate length costs a
+capture, not another copy of the rings. A graph reads the parameters
+and the ring buffers by address, so ``apply_patch`` copies new values
+into the engine's tensors instead of rebinding them, and a warm graph
+serves the patched weights.
+
+Against the JAX package's engine: no device mesh and no query chunking
+(the attention kernel streams keys, so ``ServingConfig`` has no
+``q_chunk``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Tuple
+import time
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import resolve_device
+from repro_torch.kernels import launch_counters
+from repro_torch.models.common import flatten_with_keystr, resolve_device
+from repro_torch.models.common import tree_map as _tree_map
 from repro_torch.models.model import (cache_from_prefill, decode_step, extend,
                                       prefill)
+from repro_torch.weights import as_tensor
 
 NEG_INF = -1e30
 
@@ -50,13 +66,6 @@ class ShapeDtype(NamedTuple):
     dtype: torch.dtype
 
 
-def _tree_map(fn, *trees):
-    """``fn`` over the leaves of nested dicts of the same keys."""
-    return {k: _tree_map(fn, *(t[k] for t in trees))
-            if isinstance(trees[0][k], dict) else fn(*(t[k] for t in trees))
-            for k in trees[0]}
-
-
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -69,17 +78,26 @@ class ServingEngine:
     """The token-level serving path of one dense ranker on one device.
 
     ``params`` is the ranker's param tree (``models.model.init_params`` or
-    ``weights.params_from_numpy``); it is moved to ``device``, which
-    defaults to the CUDA device and must exist unless ``device="cpu"``."""
+    ``weights.params_from_numpy``); the engine serves copies of it on
+    ``device`` (``apply_patch`` writes into them, never into the caller's
+    tensors), which defaults to the CUDA device and must exist unless
+    ``device="cpu"``."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
                  scfg: ServingConfig, device="cuda"):
         self.cfg = cfg
         self.scfg = scfg
         self.device = resolve_device(device)
-        self.params = _tree_map(lambda x: x.to(self.device), params)
+        self.params = _tree_map(lambda x: x.to(self.device, copy=True),
+                                params)
         # one device: a pane is one shard (the Gateway's per-shard bytes)
         self.data_shards = 1
+        self._slate_buffers: Dict[Tuple[int, ...], _SlateBuffers] = {}
+        self._slate_graphs: Dict[Tuple[int, Tuple[int, ...]],
+                                 _SlateGraph] = {}
+        self._graph_pool = None       # one memory pool for every graph
+        self._side_stream = None      # the graphs' warm-up runs
+        self._generator: Optional[torch.Generator] = None
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         if isinstance(x, np.ndarray) and not x.flags.writeable:
@@ -223,53 +241,262 @@ class ServingEngine:
 
         Each step picks the argmax of the current logits with the items
         already chosen masked out, then advances decode: ``slate_len - 1``
-        decode steps in all (the last pick needs no advance). The chosen
-        mask stays on the device, and the steps write into the ring cache
-        that this call's ``finalize`` made. Greedy only: an engine with
-        ``temperature > 0`` raises. Returns int32 (B, slate_len).
+        decode steps in all (the last pick needs no advance). Greedy only:
+        an engine with ``temperature > 0`` raises. Returns int32
+        (B, slate_len).
+
+        On a CUDA engine the slate is one replay of a captured CUDA graph
+        (captured at the first call for a slate length and pane shape;
+        ``slate_graph_stats``); a capture or replay error raises, and the
+        eager loop is never taken. On the CPU the same steps run eagerly.
+        Both write into a ring cache of their own, never into ``state``:
+        on the card, the ring buffers that every graph of the pane shape
+        shares.
 
         ``row_lens`` (B,) gives per-request slate lengths in one pane: the
         pane decodes ``slate_len`` steps and a row's slots at
         ``>= row_lens[row]`` are -1. Greedy decode is prefix-stable, so a
         row's first k items are the k-slate it would get alone."""
+        self._check_greedy()
+        if self.device.type != "cuda":
+            return self._decode_slate_loop(state, first_logits, slate_len,
+                                           row_lens)
+        first = self._tensor(first_logits, torch.float32)
+        # cfg, scfg and the params fix every ring shape and dtype but the
+        # batch, which is first's
+        shape = tuple(first.shape)
+        bufs = self._slate_buffers.get(shape)
+        if bufs is None:
+            bufs = self._slate_buffers[shape] = _SlateBuffers(self, state,
+                                                              first)
+        graph = self._slate_graphs.get((slate_len, shape))
+        if graph is None:
+            graph = self._slate_graphs[(slate_len, shape)] = _SlateGraph(
+                self, bufs, slate_len)
+        bufs.load(state, first)
+        return _mask_tail(graph.replay(), row_lens)
+
+    def slate_graph_stats(self) -> Dict[Tuple[int, Tuple[int, ...]],
+                                        SlateGraphStats]:
+        """The captured slate graphs, by ``(slate_len, pane shape)``: the
+        pane shape is ``first_logits``' ``(B, Vp)``. Empty on the CPU."""
+        return {key: SlateGraphStats(
+            g.capture_s * 1e3, {n: k for n, (_, k) in g.captured.items()},
+            g.replays, self._slate_buffers[key[1]].nbytes)
+            for key, g in self._slate_graphs.items()}
+
+    @torch.no_grad()
+    def _decode_slate_loop(self, state: Dict[str, Any], first_logits,
+                           slate_len: int, row_lens=None) -> np.ndarray:
+        """``decode_slate`` as an eager loop of the same steps: the CPU
+        path, and on the card the graph's parity and timing reference."""
+        self._check_greedy()
+        dec = self.finalize(state)
+        slate = self._slate_body(dec["caches"], dec["pos"],
+                                 self._tensor(first_logits, torch.float32),
+                                 slate_len)
+        return _mask_tail(slate.cpu().numpy(), row_lens)
+
+    def _check_greedy(self) -> None:
         if self.scfg.temperature > 0:
             raise NotImplementedError(
                 "decode_slate is greedy-only; sampled slate decode "
-                f"(temperature={self.scfg.temperature}) is not implemented")
-        dec = self.finalize(state)
-        caches, pos = dec["caches"], dec["pos"]
-        logits = self._tensor(first_logits, torch.float32)
-        b = logits.shape[0]
-        rows = torch.arange(b, device=self.device)
-        mask = torch.zeros(logits.shape, dtype=torch.bool, device=self.device)
+                f"(temperature={self.scfg.temperature}) is not implemented "
+                "— drive decode()/sample() directly for sampled serving")
 
-        def pick(logits):
+    def _slate_body(self, caches, pos, logits, slate_len: int
+                    ) -> torch.Tensor:
+        """The greedy slate over ring ``caches``, which it advances in
+        place: the JAX package's ``_slate_impl`` step for step. The
+        chosen mask is updated by a one-hot compare, not an indexed
+        write, and no step reads a value back to the host, so the body
+        can be captured as it is."""
+        iota = torch.arange(logits.shape[-1], dtype=torch.int32,
+                            device=logits.device)
+        mask = torch.zeros(logits.shape, dtype=torch.bool,
+                           device=logits.device)
+
+        def pick(logits, mask):
             tok = torch.argmax(torch.where(mask, NEG_INF, logits),
                                dim=-1).to(torch.int32)
-            mask[rows, tok.long()] = True
-            return tok
+            return tok, mask | (iota[None, :] == tok[:, None])
 
         picks = []
         for _ in range(slate_len - 1):
-            tok = pick(logits)
+            tok, mask = pick(logits, mask)
             picks.append(tok)
             nxt, caches = decode_step(self.params, self.cfg, caches,
                                       tok[:, None], pos, inplace=True)
             pos = pos + 1
             logits = nxt[:, 0]
-        picks.append(pick(logits))
-        slate = torch.stack(picks, dim=1)
-        if row_lens is not None:
-            lens = self._tensor(row_lens, torch.int32)
-            keep = torch.arange(slate_len, dtype=torch.int32,
-                                device=self.device)[None, :] < lens[:, None]
-            slate = torch.where(keep, slate, -1)
-        return slate.cpu().numpy()
+        picks.append(pick(logits, mask)[0])
+        return torch.stack(picks, dim=1)
 
-    def sample(self, logits) -> torch.Tensor:
-        """Greedy next tokens (B,) int32; sampled decode is not ported."""
-        if self.scfg.temperature > 0:
-            raise NotImplementedError(
-                f"sampled decode (temperature={self.scfg.temperature}) is "
-                "not implemented")
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+    def sample(self, logits, generator: Optional[torch.Generator] = None,
+               noise=None) -> torch.Tensor:
+        """Next tokens (B,) int32 from logits (B, Vp): the argmax at
+        temperature 0, else a draw from ``softmax(logits / T)`` by the
+        Gumbel-max rule ``jax.random.categorical`` uses:
+        ``argmax(gumbel + logits / T)``, with ``gumbel = -log(-log(U))``
+        and ``U`` uniform on [tiny, 1). ``noise`` (B, Vp) is the gumbel
+        term itself (a test passes ``jax.random.gumbel``'s draw); without
+        it ``U`` comes from ``generator``, by default the engine's own,
+        seeded with 0 on the engine's device."""
+        logits = self._tensor(logits)
+        if self.scfg.temperature <= 0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        if noise is None:
+            if generator is None:
+                if self._generator is None:
+                    self._generator = torch.Generator(
+                        device=self.device).manual_seed(0)
+                generator = self._generator
+            tiny = torch.finfo(logits.dtype).tiny
+            u = torch.rand(logits.shape, generator=generator,
+                           dtype=logits.dtype, device=self.device)
+            u = (u * (1.0 - tiny) + tiny).clamp_min(tiny)
+            noise = -torch.log(-torch.log(u))
+        noise = self._tensor(noise, logits.dtype)
+        return torch.argmax(noise + logits / self.scfg.temperature,
+                            dim=-1).to(torch.int32)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def apply_patch(self, leaves: Dict[str, Any]) -> int:
+        """Install new values for a subset of parameter leaves.
+
+        ``leaves`` maps ``keystr`` paths (``"['blocks']['pos0']['attn']
+        ['wq']"``, what ``training/online.py`` emits) to full replacement
+        values: numpy arrays or tensors (numpy's float64 and int64 are
+        taken as float32 and int32, as JAX takes them). Every leaf's path,
+        shape and dtype is checked before anything is written, so a bad
+        patch leaves the engine untouched. The values are then copied into
+        the engine's own tensors: captured slate graphs read the
+        parameters by address, so they serve the new weights, and no
+        caller's tensor ever becomes the engine's. The caller
+        (``Gateway.install_patch``) decides when the swap is safe (between
+        panes). Returns the number of leaves patched."""
+        if not leaves:
+            return 0
+        by_path = dict(flatten_with_keystr(self.params))
+        staged = []
+        for key, val in leaves.items():
+            old = by_path.get(key)
+            if old is None:
+                raise KeyError(
+                    f"patch leaf {key!r} is not in the parameter tree")
+            new = as_tensor(val)
+            if tuple(new.shape) != tuple(old.shape):
+                raise ValueError(
+                    f"patch leaf {key!r}: shape {tuple(new.shape)} != "
+                    f"{tuple(old.shape)}")
+            if new.dtype != old.dtype:
+                raise ValueError(
+                    f"patch leaf {key!r}: dtype {_dtype_name(new.dtype)} != "
+                    f"{_dtype_name(old.dtype)}")
+            staged.append((old, new))
+        for old, new in staged:
+            old.copy_(new)
+        return len(leaves)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """numpy's and JAX's name of a torch dtype ("float32", "bfloat16")."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _mask_tail(slate: np.ndarray, row_lens) -> np.ndarray:
+    """-1 at each row's slots ``>= row_lens[row]`` (no mask without
+    ``row_lens``)."""
+    if row_lens is None:
+        return slate
+    keep = np.arange(slate.shape[1])[None, :] < \
+        np.asarray(row_lens, np.int64)[:, None]
+    return np.where(keep, slate, -1).astype(np.int32)
+
+
+class SlateGraphStats(NamedTuple):
+    """One captured slate graph (``ServingEngine.slate_graph_stats``)."""
+    capture_ms: float         # the warm-up run and the capture, host clock
+    launches: Dict[str, int]  # kernel launches a replay, recorded at capture
+    replays: int
+    ring_bytes: int           # the pane shape's ring buffers, shared by
+    #                           every slate length's graph
+
+
+class _SlateBuffers:
+    """The static inputs of every slate graph of one pane shape: ring
+    caches made by the first call's ``finalize`` (graph-owned: never a
+    pool slot or a host-LRU entry), the positions and the first logits.
+    ``load`` writes a pane's state straight into them before each replay.
+    The graphs never run at once, so they can share one set."""
+
+    def __init__(self, engine: ServingEngine, state, first: torch.Tensor):
+        self.cfg, self.capacity = engine.cfg, engine.scfg.cache_capacity
+        dec = engine.finalize(state)
+        self.caches = dec["caches"]
+        self.pos = dec["pos"].clone()
+        self.first = first.clone()
+        self.nbytes = sum(t.nbytes for t in _leaves(self.caches))
+
+    def load(self, state, first: torch.Tensor) -> None:
+        cache_from_prefill(self.cfg, state["caches"], self.capacity,
+                           valid=state["valid"], out=self.caches)
+        self.pos.copy_(state["next_pos"])
+        self.first.copy_(first)
+
+
+class _SlateGraph:
+    """One captured greedy slate of an engine, for one slate length and
+    pane shape, over that shape's ``_SlateBuffers``.
+
+    The body runs once eagerly on a side stream before capture, so the
+    kernels are built, loaded and their attributes set outside it (the
+    run advances the buffers, which ``load`` rewrites before a replay).
+    Capture uses the thread-local mode, so another thread of the process
+    (the online trainer's worker) may allocate and launch while it runs.
+    Every graph of the engine captures into the engine's one memory pool:
+    its temporaries may lie where another graph's output lies, which is
+    safe because replays never overlap and each replay's only output, the
+    slate, is copied to the host before the next replay.
+
+    A replay runs no Python of the kernel wrappers, so their launch
+    counters would miss it: the launches recorded during capture are
+    taken back out of the counters and added again, captured x 1, at
+    every replay."""
+
+    def __init__(self, engine: ServingEngine, bufs: _SlateBuffers,
+                 slate_len: int):
+        t0 = time.perf_counter()
+        dev = engine.device
+        if engine._graph_pool is None:
+            engine._graph_pool = torch.cuda.graph_pool_handle()
+            engine._side_stream = torch.cuda.Stream(dev)
+        side = engine._side_stream
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            engine._slate_body(bufs.caches, bufs.pos, bufs.first, slate_len)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        counters = launch_counters()
+        before = {n: op.launches for n, op in counters.items()}
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=engine._graph_pool,
+                              capture_error_mode="thread_local"):
+            self.slate = engine._slate_body(bufs.caches, bufs.pos,
+                                            bufs.first, slate_len)
+        self.captured = {}
+        for name, op in counters.items():
+            n = op.launches - before[name]
+            op.launches = before[name]
+            if n:
+                self.captured[name] = (op, n)
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t0
+        self.replays = 0
+
+    def replay(self) -> np.ndarray:
+        self.graph.replay()
+        for op, n in self.captured.values():
+            op.launches += n
+        self.replays += 1
+        return self.slate.cpu().numpy()

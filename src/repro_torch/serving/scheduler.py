@@ -50,9 +50,15 @@ scatter, and no state visits the host. The slot table
 (:class:`PagedStateCache`) keeps the host LRU's exact key/counter/rekey
 surface, so the warm handoff composes unchanged — a generation rekey
 renames table keys and never touches device tensors. Both backends
-serve bitwise-identical slates (tests/test_torch_state_pool.py). Online
-weight patches (``attach_trainer``, ``install_patch``) are not part of
-this package yet and raise ``NotImplementedError``.
+serve bitwise-identical slates (tests/test_torch_state_pool.py).
+
+**Online weight patches.** ``install_patch`` hot-swaps an
+:class:`~repro_torch.training.online.WeightPatch` between panes: the
+engine copies the new leaf values into its own tensors (its captured
+slate graphs stay valid), and the cache generation's model-version axis
+advances, so no state prefilled under the old weights is served again.
+``attach_trainer`` makes an :class:`~repro_torch.training.OnlineTrainer`
+the patch source, drained at every ``tick`` and drain.
 
 **Mixed-policy panes.** Per-request ``policy`` resolves at
 feature-assembly time, so control ("batch"), treatment ("inject") and
@@ -104,9 +110,6 @@ from repro_torch.serving.api import (POLICIES, GatewayStats, Request,
                                      RolloverStats, Ticket, as_event)
 from repro_torch.serving.engine import ServingEngine, _leaves, _tree_map
 from repro_torch.serving.pool import DeviceStatePool, PagedStateCache
-
-PATCH_ITEM = ("ROADMAP.md, queue 1, item 4 (checkpoint I/O and the online "
-              "trainer)")
 
 
 # ----------------------------------------------------------------------
@@ -745,27 +748,78 @@ class Gateway:
     # ------------------------------------------------------------------
 
     def attach_trainer(self, trainer) -> None:
-        """Attaching an online trainer as a patch source is not ported
-        yet: any trainer raises ``NotImplementedError`` (``None``, no
-        trainer, is what the gateway already has)."""
-        if trainer is not None:
-            raise NotImplementedError(
-                f"attach_trainer: the online trainer and its weight "
-                f"patches are not ported yet ({PATCH_ITEM})")
+        """Attach an :class:`~repro_torch.training.OnlineTrainer` as the
+        gateway's patch source: every ``tick``/drain boundary polls it for
+        finished patches and installs them via :meth:`install_patch`,
+        always between panes, never mid-pane. The trainer's version must
+        match the gateway's current model version (both start at 0)."""
+        if trainer is not None and trainer.version != self._model_version:
+            raise ValueError(
+                f"trainer is at version {trainer.version} but the "
+                f"gateway serves model version {self._model_version}; "
+                f"patches would fail the base-version guard")
+        self._trainer = trainer
 
     def install_patch(self, patch) -> int:
-        """Hot-swapping a weight patch is not ported yet: raises
-        ``NotImplementedError``. The model version stays 0."""
-        raise NotImplementedError(
-            f"install_patch: weight patches are not ported yet "
-            f"({PATCH_ITEM})")
+        """Hot-swap a :class:`~repro_torch.training.WeightPatch` into the
+        live engine: O(patch), only the patched leaves are written (in
+        place, so the engine's captured graphs serve them), and there is
+        no checkpoint reload. The patch must be based on the currently
+        served version (base-version guard); the install advances the
+        model-version axis of the composite cache generation, so every
+        state prefilled under the old weights becomes unreachable at once.
+        ``patch_policy`` decides their fate: ``"purge"`` drops them;
+        ``"rewarm"`` queues their users (MRU-first) for the budgeted
+        ``warm_step`` re-prefill under the new weights.
+
+        Only this method advances ``model_version``, and it runs on the
+        serving thread between panes, so a pane always scores every row
+        under one parameter set. Returns the number of leaves swapped."""
+        if patch.base_version != self._model_version:
+            raise ValueError(
+                f"patch {patch.version} is based on version "
+                f"{patch.base_version}, but the gateway serves version "
+                f"{self._model_version}; re-emit the patch from the "
+                f"served version (patches never skip or rewind)")
+        t0 = time.perf_counter()
+        n = self.engine.apply_patch(patch.leaves)
+        self._model_version = int(patch.version)
+        self._patches_applied += 1
+        # a params change invalidates the delta-rewarm window too: the
+        # retained old-generation states were prefilled under old weights
+        self._handoff_from = None
+        if self._gen is not None:
+            new_vgen = (self._gen[0], self._model_version)
+            stale_users = [u for (u, g) in self.cache._entries
+                           if g != new_vgen]
+            self.cache.invalidate_except(new_vgen)
+            if self.cfg.patch_policy == "rewarm":
+                self._rewarm_queue = deque(dict.fromkeys(
+                    reversed(stale_users)))
+            else:
+                self._rewarm_queue.clear()
+            self._gen = new_vgen
+        dt = time.perf_counter() - t0
+        if dt > self._patch_install_max_s:
+            self._patch_install_max_s = dt
+        return n
 
     def _maybe_install_patches(self) -> int:
-        """Drain the attached trainer's finished patches into the engine.
-        Called at the top of ``tick`` and of every queue drain — the
-        between-panes boundaries. No trainer can be attached yet
-        (``attach_trainer``), so this installs nothing."""
-        return 0
+        """Drain the attached trainer's finished patches (if any) into the
+        engine. Called at the top of ``tick`` and of every queue drain
+        (the between-panes boundaries), so a pane in flight never sees a
+        version change."""
+        tr = self._trainer
+        if tr is None:
+            return 0
+        n = 0
+        while True:
+            patch = tr.poll_patch()
+            if patch is None:
+                break
+            self.install_patch(patch)
+            n += 1
+        return n
 
     # ------------------------------------------------------------------
     # Ingestion (the other half of the facade)

@@ -1,0 +1,25 @@
+"""Next-token / next-item cross-entropy with padded-vocab and validity
+masking (the JAX package's ``training/losses.py``)."""
+from __future__ import annotations
+
+import torch
+
+
+def cross_entropy(logits, labels, valid=None):
+    """logits (B,S,Vp) f32 (the padded vocab already masked to -1e30);
+    labels (B,S) int; valid (B,S) bool or int. Returns (mean loss,
+    accuracy) over the valid positions, as 0-dim f32 tensors.
+
+    The label's logit is gathered: the JAX package contracts a one-hot
+    instead (for sharded vocabularies), which adds only exact zeros, so
+    the two give the same value."""
+    labels = labels.long()
+    logz = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = logz - lab
+    hit = (torch.argmax(logits, dim=-1) == labels).to(torch.float32)
+    if valid is None:
+        return nll.mean(), hit.mean()
+    w = valid.to(torch.float32)
+    denom = torch.clamp_min(w.sum(), 1.0)
+    return (nll * w).sum() / denom, (hit * w).sum() / denom

@@ -1,0 +1,122 @@
+"""The train step: the forward on its plain path, autograd, microbatch
+gradient accumulation and AdamW (the JAX package's
+``training/train_loop.py`` on one device).
+
+The forward runs with ``use_kernels=False``, as the JAX package trains
+through plain XLA attention and the plain SSD scan: the CUDA kernels have
+no backward, and their wrappers raise when asked for gradients.
+``remat`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``), as ``jax.checkpoint`` does there. The JAX
+config's sharding fields and ``q_chunk`` mean nothing on one device and
+are left out.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import flatten_with_keystr
+from repro_torch.models.common import tree_map as _map
+from repro_torch.models.model import forward
+from repro_torch.training.losses import cross_entropy
+from repro_torch.training.optimizer import AdamWConfig, OptState, adamw_update
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    adamw: AdamWConfig = AdamWConfig()
+    # the batch is split into `microbatches` sequential accumulation steps
+    microbatches: int = 1
+    remat: bool = True
+    param_dtype: torch.dtype = torch.bfloat16
+
+
+def make_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Callable:
+    """``loss_fn(params, batch) -> (loss, metrics)``; ``batch`` holds
+    ``tokens``, ``labels`` and optionally ``valid`` and ``loss_mask``
+    (B,S) tensors. The metrics are the mean loss, the accuracy and the MoE
+    auxiliary loss (0: the port has no MoE)."""
+    def loss_fn(params, batch):
+        logits = forward(params, model_cfg, batch["tokens"],
+                         valid=batch.get("valid"), use_kernels=False,
+                         remat=train_cfg.remat)
+        loss, acc = cross_entropy(logits, batch["labels"],
+                                  batch.get("loss_mask", batch.get("valid")))
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        return loss + aux, {"loss": loss, "acc": acc, "moe_aux": aux}
+    return loss_fn
+
+
+def _to_device(batch, device) -> Dict[str, torch.Tensor]:
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray):
+            v = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = torch.as_tensor(v).to(device)
+    return out
+
+
+def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig
+                    ) -> Callable:
+    """``train_step(params, opt, batch) -> (params, opt, metrics)``. The
+    batch (numpy arrays or tensors) moves to the params' device; with
+    ``microbatches`` > 1 it is split along the batch axis and the f32
+    gradients are summed over the pieces and divided by their count, as
+    the JAX step's scan does."""
+    loss_fn = make_loss_fn(model_cfg, train_cfg)
+
+    def grad_fn(params, batch):
+        live = _map(lambda p: p.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            loss, metrics = loss_fn(live, batch)
+            loss.backward()
+        grads = _map(lambda p: torch.zeros_like(p) if p.grad is None
+                     else p.grad, live)
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    def train_step(params, opt: OptState, batch):
+        device = next(p for _, p in flatten_with_keystr(params)).device
+        batch = _to_device(batch, device)
+        nm = train_cfg.microbatches
+        if nm == 1:
+            grads, metrics = grad_fn(params, batch)
+            grads = _map(lambda g: g.to(torch.float32), grads)
+        else:
+            micro = [{k: v.reshape((nm, v.shape[0] // nm) + v.shape[1:])[i]
+                      for k, v in batch.items()} for i in range(nm)]
+            grads = _map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=p.device), params)
+            metrics = {k: torch.zeros((), dtype=torch.float32, device=device)
+                       for k in ("loss", "acc", "moe_aux")}
+            for mb in micro:
+                g, m = grad_fn(params, mb)
+                grads = _map(lambda a, b: a + b.to(torch.float32), grads, g)
+                metrics = {k: metrics[k] + m[k] for k in metrics}
+            grads = _map(lambda g: g / nm, grads)
+            metrics = {k: v / nm for k, v in metrics.items()}
+        params, opt, stats = adamw_update(train_cfg.adamw, grads, opt,
+                                          train_cfg.param_dtype)
+        return params, opt, {**metrics, **stats}
+
+    return train_step
+
+
+def train(model_cfg: ModelConfig, train_cfg: TrainConfig, params,
+          opt: OptState, batches, *, log_every: int = 20,
+          log: Optional[Callable[[str], None]] = print) -> Dict[str, Any]:
+    """Simple host loop over an iterable of batches. Returns the final
+    params, optimizer state and per-step metrics."""
+    step_fn = make_train_step(model_cfg, train_cfg)
+    history = []
+    for i, batch in enumerate(batches):
+        params, opt, metrics = step_fn(params, opt, batch)
+        m = {k: float(v) for k, v in metrics.items()}
+        if log and (i % log_every == 0):
+            log(f"step {i:5d} loss={m['loss']:.4f} acc={m['acc']:.4f} "
+                f"gnorm={m['grad_norm']:.2f} lr={m['lr']:.2e}")
+        history.append(m)
+    return {"params": params, "opt": opt, "history": history}

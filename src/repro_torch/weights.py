@@ -26,6 +26,24 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
+# the types JAX gives numpy's 64-bit arrays with x64 off (its default)
+_CANONICAL = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+              np.dtype(np.uint64): np.uint32,
+              np.dtype(np.complex128): np.complex64}
+
+
+def as_tensor(x) -> torch.Tensor:
+    """A tensor as it is, or a new CPU tensor from anything numpy takes,
+    its dtype as ``jnp.asarray`` would give it (64-bit types narrowed to
+    32, ml_dtypes' bf16 kept bit for bit)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    arr = np.asarray(x)
+    if arr.dtype in _CANONICAL:
+        arr = arr.astype(_CANONICAL[arr.dtype])
+    return _tensor(arr)
+
+
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
                       dtype=None) -> Dict[str, Any]:
     """The port's param tree from a numpy copy of the JAX one, on ``device``,

@@ -418,7 +418,7 @@ def test_gateway_cuda_matches_cpu(cuda):
                                    atol=1e-4, rtol=1e-4)
 
 
-def _tiny_cuda_engine(cuda, arch="tiny-test"):
+def _tiny_cuda_engine(cuda, arch="tiny-test", dtype=torch.float32):
     from repro_torch.configs import ModelConfig, get_config, reduced
     from repro_torch.models.model import init_params
     from repro_torch.serving import ServingConfig, ServingEngine
@@ -429,8 +429,7 @@ def _tiny_cuda_engine(cuda, arch="tiny-test"):
                        d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
                        vocab_size=N_ITEMS + 256, rope_theta=1e4,
                        tie_embeddings=True))
-    params = init_params(cfg, torch.Generator().manual_seed(0),
-                         torch.float32, "cpu")
+    params = init_params(cfg, torch.Generator().manual_seed(0), dtype, "cpu")
     return ServingEngine(cfg, params, ServingConfig(
         max_batch=4, prefill_len=32, inject_len=8, cache_capacity=64),
         device=cuda)
@@ -507,3 +506,163 @@ def test_pooled_gateway_cuda_matches_host_lru(cuda):
         assert p.response.telemetry.path == h.response.telemetry.path
         np.testing.assert_array_equal(p.response.slate, h.response.slate)
         np.testing.assert_array_equal(p.response.scores, h.response.scores)
+
+
+def _slate_state(eng, seed=0):
+    """prefill -> inject of a seeded pane: (state, first logits)."""
+    rng = np.random.RandomState(seed)
+    b = eng.scfg.max_batch
+    hist = [rng.randint(1, 300, rng.randint(4, 30)).tolist() for _ in range(b)]
+    fresh = [rng.randint(1, 300, rng.randint(0, 8)).tolist() for _ in range(b)]
+    pre = eng.prefill(*eng.pad_tokens(hist, eng.scfg.prefill_len))
+    st = eng.inject(pre, *eng.pad_tokens(fresh, eng.scfg.inject_len,
+                                         align="left"),
+                    fallback_logits=pre["logits"][:, -1])
+    return st, st["first_logits"]
+
+
+@pytest.mark.parametrize("arch,dtype", [
+    ("tiny-test", torch.float32), ("tiny-test", torch.bfloat16),
+    ("mamba2", torch.float32), ("mamba2", torch.bfloat16)])
+def test_slate_graph_equals_loop(cuda, arch, dtype):
+    """``decode_slate`` on the card (one replay of a captured graph) is bit
+    for bit the eager loop's slate, on the capture call and on replays
+    with other panes, with and without ``row_lens``; neither touches the
+    state it was given."""
+    eng = _tiny_cuda_engine(cuda, arch, dtype)
+    for seed in range(3):
+        st, first = _slate_state(eng, seed)
+        before = [t.clone() for t in _tree_leaves(st["caches"])]
+        want = eng._decode_slate_loop(st, first, 5)
+        got = eng.decode_slate(st, first, 5)
+        np.testing.assert_array_equal(got, want)
+        lens = np.array([5, 1, 3, 0], np.int32)
+        np.testing.assert_array_equal(
+            eng.decode_slate(st, first, 5, row_lens=lens),
+            eng._decode_slate_loop(st, first, 5, row_lens=lens))
+        for t, b in zip(_tree_leaves(st["caches"]), before):
+            assert torch.equal(t, b)
+    assert len(eng.slate_graph_stats()) == 1
+
+
+def test_slate_graph_counts_launches_under_replay(cuda):
+    """A replay runs no wrapper code, so the graph adds its captured
+    launches at each replay: every ``decode_slate`` call counts what the
+    eager loop counts, n_layers x (slate_len - 1) ``decode_attention``."""
+    from repro_torch.kernels import launch_counters
+    eng = _tiny_cuda_engine(cuda)
+    st, first = _slate_state(eng)
+    per_slate = eng.cfg.n_layers * (5 - 1)
+    ops = launch_counters()
+    before = {n: op.launches for n, op in ops.items()}
+    eng._decode_slate_loop(st, first, 5)
+    assert decode_attention.launches - before["decode_attention"] == \
+        per_slate
+    eng.decode_slate(st, first, 5)           # warm-up run + first replay
+    (stats,) = eng.slate_graph_stats().values()
+    assert stats.launches == {"decode_attention": per_slate}
+    assert decode_attention.launches - before["decode_attention"] == \
+        3 * per_slate
+    for _ in range(4):
+        eng.decode_slate(st, first, 5)
+    assert decode_attention.launches - before["decode_attention"] == \
+        7 * per_slate
+    for name in ("flash_attention", "ssd_scan", "history_merge"):
+        assert ops[name].launches == before[name]
+
+
+def test_slate_lengths_share_ring_buffers(cuda):
+    """Every slate length's graph of one pane shape captures over the same
+    ring buffers and one memory pool: after the first graph, seven more
+    lengths grow neither the device memory in use nor its peak by an
+    eighth of the rings' bytes (a copy of the rings per length would
+    grow both by the whole), and each slate is the first picks of the
+    longest loop's (greedy decode is prefix-stable)."""
+    from repro_torch.serving import ServingConfig, ServingEngine
+    small = _tiny_cuda_engine(cuda)
+    eng = ServingEngine(small.cfg, small.params, ServingConfig(
+        max_batch=16, prefill_len=32, inject_len=8, cache_capacity=4096),
+        device=cuda)
+    st, first = _slate_state(eng)
+    want = eng._decode_slate_loop(st, first, 9)
+    np.testing.assert_array_equal(eng.decode_slate(st, first, 2),
+                                  want[:, :2])
+    (stats,) = eng.slate_graph_stats().values()
+    assert stats.ring_bytes >= 32 << 20
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng.decode_slate(st, first, 2)
+    now, peak = torch.cuda.memory_allocated(), \
+        torch.cuda.max_memory_allocated()
+    for n in range(3, 10):
+        np.testing.assert_array_equal(eng.decode_slate(st, first, n),
+                                      want[:, :n])
+    assert len(eng.slate_graph_stats()) == 8
+    assert torch.cuda.memory_allocated() - now < stats.ring_bytes / 8
+    assert torch.cuda.max_memory_allocated() - peak < stats.ring_bytes / 8
+
+
+def test_patch_after_warm_graph_equals_cold_engine(cuda):
+    """A patch installed after the graph is warm: the next replay serves
+    bit for bit what a cold engine built from the patched weights serves,
+    through its own graph and its loop."""
+    from repro_torch.models.common import flatten_with_keystr
+    from repro_torch.serving import ServingEngine
+    eng = _tiny_cuda_engine(cuda)
+    st, first = _slate_state(eng)
+    old = eng.decode_slate(st, first, 5)               # the graph is warm
+    rng = np.random.RandomState(5)
+    eng.apply_patch({k: v.cpu() + torch.from_numpy(
+        rng.randn(*v.shape).astype(np.float32)) * 0.5
+        for k, v in flatten_with_keystr(eng.params)
+        if "embed" in k or "['wo']" in k})
+    st, first = _slate_state(eng)
+    got = eng.decode_slate(st, first, 5)
+    assert len(eng.slate_graph_stats()) == 1
+    cold = ServingEngine(eng.cfg, eng.params, eng.scfg, device=cuda)
+    cst, cfirst = _slate_state(cold)
+    np.testing.assert_array_equal(got, cold._decode_slate_loop(cst, cfirst,
+                                                               5))
+    np.testing.assert_array_equal(got, cold.decode_slate(cst, cfirst, 5))
+    assert not np.array_equal(old, got)
+
+
+def test_trainer_worker_runs_while_graphs_capture(cuda):
+    """The online trainer's worker trains on the card from its own thread
+    while the serving thread captures new slate graphs and replays them:
+    no capture error, every slate equals the eager loop's, and the worker
+    stepped and stops cleanly."""
+    from repro_torch.core.event_log import EventLog
+    from repro_torch.training import (AdamWConfig, OnlineTrainer,
+                                      OnlineTrainerConfig, TrainConfig)
+    eng = _tiny_cuda_engine(cuda)
+    log = EventLog(n_users=64)
+    rng = np.random.RandomState(0)
+    feed = {"t": 1000}
+
+    def more_events():
+        for _ in range(32):
+            log.append(int(rng.randint(64)), int(rng.randint(300)),
+                       feed["t"])
+            feed["t"] += 1
+    more_events()
+    tr = OnlineTrainer(eng.cfg, eng.params, log, device=cuda,
+                       cfg=OnlineTrainerConfig(batch_size=32, seq_len=32,
+                                               interval_s=0.0),
+                       train_cfg=TrainConfig(adamw=AdamWConfig(lr=1e-3),
+                                             remat=False,
+                                             param_dtype=torch.float32),
+                       step_hook=more_events)
+    tr.start()
+    try:
+        for slate_len in range(2, 9):
+            st, first = _slate_state(eng, slate_len)
+            want = eng._decode_slate_loop(st, first, slate_len)
+            for _ in range(2):
+                np.testing.assert_array_equal(
+                    eng.decode_slate(st, first, slate_len), want)
+    finally:
+        tr.stop(timeout=120)
+    assert not tr._thread.is_alive()
+    assert tr.steps >= 1 and tr.poll_patch() is not None
+    assert len(eng.slate_graph_stats()) == 7

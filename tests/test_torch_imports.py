@@ -1,7 +1,8 @@
 """Import guards for the PyTorch port (``src/repro_torch``).
 
-The port imports ``torch`` and numpy, never ``jax`` and nothing of the JAX
-package ``repro``; its entry points run on the CUDA device unless the
+The port imports ``torch`` and numpy, never ``jax``, ``msgpack``,
+``ml_dtypes`` or anything of the JAX package ``repro`` (its checkpoint and
+patch formats carry their own msgpack codec and bf16 views); its entry points run on the CUDA device unless the
 caller passes ``device="cpu"``, and never fall back to the CPU.
 """
 import os
@@ -17,19 +18,27 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|msgpack|repro)(?:\.|\s|$)", re.M)
+    r"^\s*(?:import|from)\s+(?:jax|msgpack|ml_dtypes|repro)(?:\.|\s|$)",
+    re.M)
 
 
 def test_import_without_jax():
-    """Every module of the port imports with ``jax`` made unimportable,
-    and no module of ``repro`` comes along."""
+    """Every module of the port, ``training/`` included, imports with
+    ``jax``, ``msgpack`` and ``ml_dtypes`` made unimportable, and no
+    module of ``repro`` comes along."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['msgpack'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import repro_torch\n"
-        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,\n"
+        "                                               'repro_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "for name in ('checkpoint', 'losses', 'online', 'optimizer',\n"
+        "             'train_loop', '_msgpack'):\n"
+        "    assert 'repro_torch.training.' + name in names, name\n"
         "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")

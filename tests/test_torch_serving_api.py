@@ -8,8 +8,9 @@ validation must raise the same exception with the same message. A seeded
 sequence of cache operations must leave both packages' ``PrefillStateCache``
 with the same keys in the same LRU order and the same counters, bytes
 included. The shim must warn and serve bit for bit what ``submit_many`` +
-``flush`` serves. What the port has not taken over yet (weight patches)
-raises ``NotImplementedError``.
+``flush`` serves. The weight-patch surface (``attach_trainer``,
+``install_patch``) must refuse what the JAX Gateway refuses, with the same
+messages.
 """
 import dataclasses
 
@@ -275,12 +276,60 @@ def test_injection_server_shim_warns_and_matches_gateway(engine):
     assert empty.scores.shape == (0, engine.cfg.vocab_padded)
 
 
-def test_unported_parts_raise(engine):
-    gw = _gateway(engine)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        gw.attach_trainer(object())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        gw.install_patch(object())
+def _patch_pair():
+    """A JAX Gateway and a port Gateway, each on an engine of its own
+    (patches write into it), and a port trainer on the port's log."""
+    from repro.serving.scheduler import Gateway as JaxGateway
+    from repro_torch.training import (AdamWConfig, OnlineTrainer,
+                                      OnlineTrainerConfig, TrainConfig)
+
+    jgw = JaxGateway(tiny_engine(), make_injector("repro"),
+                     jax_scheduler.ServerConfig(slate_len=3))
+    gw = _gateway(port_engine(tiny_engine()))
+    tr = OnlineTrainer(gw.engine.cfg, gw.engine.params, gw.injector.batch.log,
+                       cfg=OnlineTrainerConfig(),
+                       train_cfg=TrainConfig(
+                           adamw=AdamWConfig(lr=3e-2, warmup_steps=2),
+                           remat=False, param_dtype=torch.float32),
+                       device="cpu")
+    return jgw, gw, tr
+
+
+def test_install_patch_base_version_guard():
+    """Patches install in order only; a skipped or rewound one raises the
+    JAX Gateway's ``ValueError`` and leaves the served version."""
+    jgw, gw, tr = _patch_pair()
+    assert tr.step() is not None
+    p1, p2 = tr.make_patch(), tr.make_patch()     # p2 is based on version 1
+    assert (p1.base_version, p1.version, p2.base_version) == (0, 1, 1)
+    got = _raised(lambda: gw.install_patch(p2))
+    assert got == _raised(lambda: jgw.install_patch(p2))
+    assert got[0] == "ValueError"
+    assert gw.stats().model_version == 0 and gw.stats().patches_applied == 0
+    assert gw.install_patch(p1) == p1.n_leaves
+    gw.install_patch(p2)
+    assert gw.stats().model_version == 2 and gw.stats().patches_applied == 2
+    assert _raised(lambda: gw.install_patch(p1))[0] == "ValueError"
+    assert gw.stats().model_version == 2
+
+
+def test_attach_trainer_version_check():
+    """A trainer whose version is not the served one is refused with the
+    JAX Gateway's message; a matching one is drained at ``tick``, and
+    detaching (``None``) stops the drain."""
+    jgw, gw, tr = _patch_pair()
+    tr.make_patch()                                  # tr is at version 1
+    got = _raised(lambda: gw.attach_trainer(tr))
+    assert got[0] == "ValueError"
+    assert got == _raised(lambda: jgw.attach_trainer(tr))
+    assert gw._maybe_install_patches() == 0          # nothing attached
+    _, gw, tr = _patch_pair()
+    gw.attach_trainer(tr)
+    assert gw._maybe_install_patches() == 0          # no patch queued yet
+    tr.step()
+    tr._patch_q.append(tr.make_patch())              # as the worker queues
+    gw.tick(T0)
+    assert gw.stats().patches_applied == 1 and gw.stats().model_version == 1
     gw.attach_trainer(None)
     assert gw._maybe_install_patches() == 0
 

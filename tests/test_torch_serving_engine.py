@@ -197,4 +197,58 @@ def test_engine_is_greedy_only(engines):
     with pytest.raises(NotImplementedError):
         hot.decode_slate({}, torch.zeros((4, 8)), 3)
     with pytest.raises(NotImplementedError):
-        hot.sample(torch.zeros((4, 8)))
+        hot._decode_slate_loop({}, torch.zeros((4, 8)), 3)
+    # sampled decode is one token at a time, outside the slate
+    logits = torch.zeros((4, 8))
+    logits[:, 5] = 1.0
+    assert hot.sample(logits, noise=torch.zeros((4, 8))).tolist() == [5] * 4
+
+
+def test_decode_slate_loop_matches_jax_and_leaves_the_state(engines):
+    """The eager loop (the CPU path of ``decode_slate`` and the card's
+    reference for its graph) equals the JAX slate, twice over the same
+    state: it advances a ring cache of its own, never ``state``'s."""
+    jeng, eng = engines
+    (_, jst), (_, st) = _states(engines)
+    before = [t.clone() for t in st["caches"]["pos0"].values()]
+    want = jeng.decode_slate(jst, jst["first_logits"], 6)
+    for _ in range(2):
+        got = eng._decode_slate_loop(st, st["first_logits"], 6)
+        np.testing.assert_array_equal(got, want)
+    for t, b in zip(st["caches"]["pos0"].values(), before):
+        assert torch.equal(t, b)
+
+
+@pytest.mark.parametrize("temperature", [0.7, 1.3])
+def test_sample_matches_jax_categorical(engines, temperature):
+    """``sample`` at ``temperature > 0`` against the JAX engine's
+    (``jax.random.categorical``), given JAX's own gumbel draw for the same
+    key as ``noise``: equal tokens. Without ``noise`` it draws from the
+    engine's generator (or the one passed) in range."""
+    from repro.serving.engine import ServingConfig as JaxServingConfig
+    from repro.serving.engine import ServingEngine as JaxServingEngine
+
+    jeng, eng = engines
+    logits = np.random.RandomState(3).randn(4, eng.cfg.vocab_padded) \
+        .astype(np.float32) * 3
+    logits[:, eng.cfg.vocab_size:] = -1e30         # the padded vocab
+    jhot = JaxServingEngine(jeng.cfg, jeng.params, JaxServingConfig(
+        max_batch=4, prefill_len=32, inject_len=8, cache_capacity=64,
+        temperature=temperature))
+    hot = ServingEngine(eng.cfg, eng.params, ServingConfig(
+        max_batch=4, prefill_len=32, inject_len=8, cache_capacity=64,
+        temperature=temperature), device="cpu")
+    for seed in range(8):
+        key = jax.random.PRNGKey(seed)
+        want = np.asarray(jhot.sample(jnp.asarray(logits), key))
+        noise = np.array(jax.random.gumbel(key, logits.shape, jnp.float32))
+        got = hot.sample(torch.from_numpy(logits),
+                         noise=torch.from_numpy(noise))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    draws = hot.sample(torch.from_numpy(logits),
+                       generator=torch.Generator().manual_seed(1))
+    assert ((draws >= 0) & (draws < eng.cfg.vocab_size)).all()
+    assert torch.equal(hot.sample(torch.from_numpy(logits),
+                                  generator=torch.Generator().manual_seed(1)),
+                       draws)
