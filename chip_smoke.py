@@ -84,7 +84,21 @@
    panes, each pane serves one model version;
 16. ``save_checkpoint``/``load_checkpoint`` of the trained full-width
    params with the port's pure-Python msgpack codec: every leaf, bf16
-   included, bit for bit.
+   included, bit for bit;
+17. the paper's §IV A/B experiment, ``core.ab.run_experiment`` on the
+   full-width ``itfi-ranker`` (800 users, 4864 items, days 4 + 4 + 6,
+   arms control, treatment, consistent and ``stale_3600s``): every arm
+   faces identical impressions, every CTR is in (0, 0.9) and every lift
+   inside its CI; ``flash_attention`` launches in gen 1 and every arm,
+   ``history_merge`` in the treatment alone; the treatment's first A/B
+   day rerun from the same world and params is bit for bit the first
+   run's; one serve call of 256 users in each mode (inject, batch,
+   consistent, staleness 3600) with the gen-2 params in fp32, kernel
+   path against plain path (equal tokens, logits within 1e-4, a slate
+   may differ only on a row whose top scores tie within 1e-4); both
+   kernels held against and timed beside their plain versions at the
+   experiment's own inputs; each ``train_ranker``, ``simulate_day`` and
+   serve call timed.
 
 It needs a CUDA device: without one it exits non-zero and prints no result.
 The line before the last is the card's name and power limit; the last line
@@ -93,6 +107,7 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import json
 import math
@@ -136,6 +151,9 @@ GRAPH_MORE_LENS = (3, 5, 7)
 SAMPLE_T, SAMPLE_DRAWS, SAMPLE_BATCH = 0.8, 200_000, 10_000
 # the online trainer: its batch and window, the users of the served wave
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_USERS = 256, 256, 512
+# the A/B experiment: ABConfig's world of 800 users (its items are the
+# ranker's catalog, vocab - 256), and the users of the fp32 serve call
+AB_USERS, AB_FP32_USERS = 800, 256
 
 
 def card() -> str:
@@ -268,22 +286,34 @@ def check_history_merge(dev, report, gpu):
               f"(B={args[0].shape[0]}, Lb={args[0].shape[1]}, "
               f"Lr={args[3].shape[1]}, K={out_len})")
 
-    call_ms = time_ms(lambda: history_merge(*design, out_len=k))
-    ms, _ = device_ms(lambda: history_merge(*design, out_len=k))
-    plain_ms, _ = device_ms(lambda: history_merge_ref(*design, out_len=k), 5, 1)
-    n = lb + lr
-    n_bytes = 4 * 3 * b * (lb + lr + k)
-    n_ops = b * n * math.log2(n)  # a comparison sort's least work per row
-    bound_ms, bound_by = bound(n_bytes, n_ops, "int32")
-    print(f"time history_merge B={b} N={n} K={k}: kernel {ms:.4f} ms on the "
-          f"device ({call_ms:.4f} ms per wrapper call, CUDA events), plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) [{gpu}]")
     report["history_merge"] = dict(
         name="history_merge", route="cuda",
         source="src/repro_torch/kernels/history_merge/csrc/history_merge.cu",
         replaces="src/repro/kernels/history_merge/history_merge.py:68",
-        max_abs_err=float(err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None)
+        max_abs_err=float(err), library_ms=None,
+        **time_merge(design, k, "the design point", gpu))
+
+
+def time_merge(args, out_len, label, gpu):
+    """The kernel and its plain version on the same inputs; returns the
+    measured times and the bound of these inputs."""
+    from repro_torch.kernels.history_merge.ops import history_merge
+    from repro_torch.kernels.history_merge.ref import history_merge_ref
+    b, lb, lr = args[0].shape[0], args[0].shape[1], args[3].shape[1]
+    call_ms = time_ms(lambda: history_merge(*args, out_len=out_len))
+    ms, _ = device_ms(lambda: history_merge(*args, out_len=out_len))
+    plain_ms, _ = device_ms(lambda: history_merge_ref(*args, out_len=out_len),
+                            5, 1)
+    n = lb + lr
+    n_bytes = 4 * 3 * b * (lb + lr + out_len)
+    n_ops = b * n * math.log2(n)  # a comparison sort's least work per row
+    bound_ms, bound_by = bound(n_bytes, n_ops, "int32")
+    print(f"time history_merge at {label} (B={b}, Lb={lb}, Lr={lr}, "
+          f"K={out_len}): kernel {ms:.4f} ms on the device ({call_ms:.4f} ms "
+          f"per wrapper call, CUDA events), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}) [{gpu}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 # ----------------------------------------------------------------------
@@ -562,6 +592,20 @@ def stage_times(plat, users, now, gpu):
         print(f"  kernel {ms:8.4f} ms/batch  {name[:90]}")
 
 
+def top_score_gap(last, cand, slate_size):
+    """Per row, the smallest gap between neighbours among its top
+    slate_size + 1 candidate scores (the slate and the first one left
+    out), duplicate candidates masked as the serve core masks them: a
+    row whose gap is within E2E_TOL may rank differently by rounding."""
+    import torch
+    c = cand.shape[1]
+    dup = ((cand[:, :, None] == cand[:, None, :]) & torch.ones(
+        c, c, dtype=torch.bool, device=cand.device).tril(-1)).any(-1)
+    scores = torch.gather(last, 1, cand + 1).masked_fill(dup, -1e9)
+    top = scores.sort(1, descending=True).values[:, :slate_size + 1]
+    return (top[:, :-1] - top[:, 1:]).min(1).values
+
+
 def compare_paths_fp32(dev, cfg, plat, users, now):
     """The kernel path against the plain path at fp32 on the same card:
     equal merged features, last-position logits within 1e-4, equal slates
@@ -603,15 +647,7 @@ def compare_paths_fp32(dev, cfg, plat, users, now):
         raise SystemExit("non-finite logits")
     err = float((k_last - p_last).abs().max())
     torch.testing.assert_close(k_last, p_last, atol=E2E_TOL, rtol=E2E_TOL)
-    # a row is separated when its top slate_size+1 candidate scores (the
-    # slate and the first one left out) are more than E2E_TOL apart
-    scores = torch.gather(p_last, 1, cand + 1)
-    dup = ((cand[:, :, None] == cand[:, None, :]) & torch.ones(
-        cand.shape[1], cand.shape[1], dtype=torch.bool,
-        device=dev).tril(-1)).any(-1)
-    top = scores.masked_fill(dup, -1e9).sort(1, descending=True).values[
-        :, :pcfg.slate_size + 1]
-    gap = (top[:, :-1] - top[:, 1:]).min(1).values
+    gap = top_score_gap(p_last, cand, pcfg.slate_size)
     separated = gap > E2E_TOL
     flipped = (k_slate != p_slate).any(1)
     print(f"fp32 kernel path vs plain path, {len(users)} inject requests: "
@@ -2244,6 +2280,338 @@ def _leaves(tree):
             yield v
 
 
+# ----------------------------------------------------------------------
+# The paper's §IV A/B experiment
+# ----------------------------------------------------------------------
+
+class ABProbe:
+    """Wraps the helpers ``core.ab.run_experiment`` calls (``train_ranker``,
+    ``batches``, ``train``, ``make_platform``, ``run_arm``,
+    ``simulate_day``) to time them, count kernel launches by arm, and keep
+    what the later checks need: the trained params, each platform's
+    arguments, the treatment arm's starting world and each day's per-user
+    tallies. Every wrapper returns what the wrapped function returns."""
+
+    def __init__(self, ab_mod):
+        self.ab = ab_mod
+        self.real = {n: getattr(ab_mod, n) for n in (
+            "train_ranker", "batches", "train", "make_platform", "run_arm",
+            "simulate_day")}
+        self.arm = "bootstrap"
+        self.trained = []        # (cutoff, params)
+        self.trains = []         # dicts: examples, steps, ms, loss
+        self.platforms = {}      # arm -> make_platform's (args, kwargs)
+        self.launches = {}       # arm -> {kernel: launches}
+        self.days = []           # dicts: arm, day, wall_ms, serve_ms, ...
+        self.serve_ms = {}       # arm -> [ms a serve call]
+        self.start_world = {}    # arm -> a copy of the world it starts from
+
+    def patches(self):
+        return [mock.patch.object(self.ab, n, getattr(self, n))
+                for n in self.real]
+
+    def train_ranker(self, events, model_cfg, ab, cutoff, **kw):
+        params = self.real["train_ranker"](events, model_cfg, ab, cutoff,
+                                           **kw)
+        self.trained.append((cutoff, params))
+        self.trains[-1]["cutoff"] = cutoff
+        return params
+
+    def batches(self, ex, *a, **kw):
+        self.trains.append({"examples": len(ex["labels"])})
+        return self.real["batches"](ex, *a, **kw)
+
+    def train(self, *a, **kw):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.real["train"](*a, **kw)
+        torch.cuda.synchronize()
+        hist = out["history"]
+        self.trains[-1].update(ms=(time.perf_counter() - t0) * 1e3,
+                               steps=len(hist), loss=hist[-1]["loss"])
+        return out
+
+    def make_platform(self, *a, **kw):
+        plat = self.real["make_platform"](*a, **kw)
+        plat.make_args = (a, kw)
+        serve = plat.serve
+
+        def timed_serve(users, tss):
+            t0 = time.perf_counter()
+            out = serve(users, tss)          # a host array: synchronised
+            self.serve_ms.setdefault(self.arm, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+        plat.serve = timed_serve
+        return plat
+
+    def run_arm(self, name, ab, platform, world, day_range, **kw):
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+        from repro_torch.kernels.history_merge.ops import history_merge
+        self.arm = name
+        self.platforms[name] = platform.make_args
+        self.start_world[name] = copy.deepcopy(world)
+        before = (flash_attention.launches, history_merge.launches)
+        out = self.real["run_arm"](name, ab, platform, world, day_range,
+                                   **kw)
+        self.launches[name] = {
+            "flash_attention": flash_attention.launches - before[0],
+            "history_merge": history_merge.launches - before[1]}
+        return out
+
+    def simulate_day(self, world, day, serve_fn, observe_fn, **kw):
+        n_serve = len(self.serve_ms.get(self.arm, []))
+        t0 = time.perf_counter()
+        events, m = self.real["simulate_day"](world, day, serve_fn,
+                                              observe_fn, **kw)
+        wall = (time.perf_counter() - t0) * 1e3
+        serve = sum(self.serve_ms.get(self.arm, [])[n_serve:])
+        self.days.append(dict(
+            arm=self.arm, day=day, wall_ms=wall, serve_ms=serve,
+            events=len(events), user_impressions=m["user_impressions"].copy(),
+            user_watches=m["user_watches"].copy()))
+        return events, m
+
+
+def ab_serve_record(plat, users, now, plain):
+    """One ``plat.serve`` call, with the kernels or (``plain``) with their
+    plain versions; returns the serve core's tokens, slate and candidates
+    and the ranker's last-position logits on those tokens."""
+    import torch
+    from repro_torch.core import injection as injection_mod
+    from repro_torch.core import pipeline as pipeline_mod
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.history_merge.ref import history_merge_ref
+    from repro_torch.models import attention as attention_mod
+
+    seen = []
+    real = pipeline_mod._serve_core
+
+    def spy(ranker, tokens, valid, pop_prior, **kw):
+        slate, cand = real(ranker, tokens, valid, pop_prior, **kw)
+        last = ranker(tokens.long(), valid=valid > 0, last_only=True)[:, -1]
+        seen.append((tokens.clone(), slate, cand, last))
+        return slate, cand
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(pipeline_mod, "_serve_core",
+                                              spy))
+        if plain:
+            stack.enter_context(mock.patch.object(
+                attention_mod, "flash_attention", attention_ref))
+            stack.enter_context(mock.patch.object(
+                injection_mod, "history_merge", history_merge_ref))
+        plat.serve(users, np.full(len(users), now))
+    torch.cuda.synchronize()
+    return seen[0]
+
+
+def compare_ab_modes_fp32(dev, probe, ab, cfg, now):
+    """One serve call of AB_FP32_USERS users at ``now`` in each serving
+    mode of the experiment, with the trained gen-2 params upcast to fp32:
+    the kernel path against the plain path on the same card. Tokens and
+    candidates must be equal, last-position logits within E2E_TOL, and a
+    slate may differ only on a row whose top slate_size + 1 candidate
+    scores tie within E2E_TOL; such rows are counted."""
+    import torch
+    from repro_torch.models.common import tree_map
+
+    m2 = {cut: tree_map(lambda t: t.float(), p)
+          for cut, p in probe.trained[1:]}
+    users = np.arange(AB_FP32_USERS)
+    world = probe.start_world["control"]
+    history = probe.platforms["control"][0][4]
+    modes = {"inject": (m2["midnight"], dict(policy="inject")),
+             "batch": (m2["midnight"], dict(policy="batch")),
+             "consistent": (m2["fresh"], dict(policy="inject",
+                                              mode="consistent")),
+             "staleness=3600": (m2["midnight"], dict(policy="batch",
+                                                     staleness=3600))}
+    for mode, (params, kw) in modes.items():
+        plat = probe.real["make_platform"](ab, cfg, params, world, history,
+                                           device=dev, **kw)
+        k_tok, k_slate, k_cand, k_last = ab_serve_record(plat, users, now,
+                                                         False)
+        p_tok, p_slate, p_cand, p_last = ab_serve_record(plat, users, now,
+                                                         True)
+        if not (torch.equal(k_tok, p_tok) and torch.equal(k_cand, p_cand)):
+            raise SystemExit(f"A/B fp32 {mode}: kernel and plain paths "
+                             f"disagree on tokens or candidates")
+        if not torch.isfinite(k_last[:, :cfg.vocab_size]).all():
+            raise SystemExit(f"A/B fp32 {mode}: non-finite logits")
+        err = float((k_last - p_last).abs().max())
+        torch.testing.assert_close(k_last, p_last, atol=E2E_TOL,
+                                   rtol=E2E_TOL)
+        gap = top_score_gap(p_last, p_cand, plat.pcfg.slate_size)
+        tie = gap <= E2E_TOL
+        differ = (k_slate != p_slate).any(1)
+        n = len(users)
+        print(f"A/B fp32 {mode}, {n} users at the first A/B day's clock: "
+              f"tokens and candidates equal, last-position logits max abs "
+              f"err {err:.3g} (tolerance {E2E_TOL}), {int(differ[:n].sum())} "
+              f"slates differ, {int(tie[:n].sum())} rows tie within "
+              f"{E2E_TOL}; top-score gaps of the differing rows: "
+              f"{[f'{x:.3g}' for x in gap[:n][differ[:n]].tolist()]}")
+        if (differ & ~tie)[:n].any():
+            raise SystemExit(f"A/B fp32 {mode}: a slate differs on a row "
+                             f"whose top scores do not tie within "
+                             f"{E2E_TOL}")
+        del plat
+    torch.cuda.empty_cache()
+
+
+def run_ab_experiment(dev, gpu, report):
+    """Phase 17: ``run_experiment`` on the full-width ``itfi-ranker``,
+    its checks, a determinism rerun of the treatment's first A/B day, the
+    kernel path against the plain path at fp32 in every serving mode, and
+    both kernels timed at the experiment's own inputs. Returns the
+    kernels' launches in the run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import ab as ab_mod
+    from repro_torch.core import injection as injection_mod
+    from repro_torch.data.synthetic import WorldConfig
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.history_merge.ops import history_merge
+    from repro_torch.kernels.history_merge.ref import history_merge_ref
+    from repro_torch.models import attention as attention_mod
+
+    t_phase = time.perf_counter()
+    cfg = get_config("itfi-ranker")
+    ab = ab_mod.ABConfig(world=WorldConfig(
+        n_users=AB_USERS, n_items=cfg.vocab_size - 256, sessions_per_day=2.0,
+        seed=SEED), latency_arms=(3600,), seed=SEED)
+    probe = ABProbe(ab_mod)
+    rec_fa, fa_calls = record_calls(attention_mod, "flash_attention")
+    rec_hm, hm_calls = record_calls(injection_mod, "history_merge")
+    log_lines = []
+    with contextlib.ExitStack() as stack:
+        for p in probe.patches() + [rec_fa, rec_hm]:
+            stack.enter_context(p)
+        history_merge.launches = flash_attention.launches = 0
+        t0 = time.perf_counter()
+        rep = ab_mod.run_experiment(ab, model_cfg=cfg, log=log_lines.append,
+                                    device=dev)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {"history_merge": history_merge.launches,
+                    "flash_attention": flash_attention.launches}
+    print(f"A/B experiment ({cfg.name}, {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim_}, vocab "
+          f"{cfg.vocab_size}; {AB_USERS} users, {ab.world.n_items} items, "
+          f"days {ab.bootstrap_days}+{ab.gen1_days}+{ab.ab_days}, "
+          f"feature_len {ab.feature_len}, rt_buffer_len "
+          f"{ab.rt_buffer_len}): run_experiment {run_s:.1f} s (host "
+          f"clock); launches {launches}")
+    for line in log_lines:
+        if not line.startswith("step "):
+            print(f"  {line}")
+
+    # ---- the report and the JAX integration test's checks -------------
+    arms = rep["arms"]
+    for name, a in arms.items():
+        print(f"A/B arm {name}: ctr {a['ctr']:.5f}, impressions "
+              f"{a['impressions']}, watches {a['watches']}")
+    for name, t in rep["tests"].items():
+        print(f"A/B test {name}: lift {t['lift']:+.5f}, 95% CI "
+              f"[{t['ci_lo']:+.5f}, {t['ci_hi']:+.5f}], p_t {t['p_t']:.4g}, "
+              f"pooled z {t['z_pooled']:+.3f} (p {t['p_pooled']:.4g}), "
+              f"{t['n_users']} paired users, significant {t['significant']}")
+    want_arms = {"control", "treatment", "consistent", "stale_3600s"}
+    if set(arms) != want_arms:
+        raise SystemExit(f"A/B arms {sorted(arms)}")
+    if len({a["impressions"] for a in arms.values()}) != 1:
+        raise SystemExit("A/B arms faced different impressions")
+    ui = [r.user_impressions for r in rep["results"].values()]
+    if any(not np.array_equal(x, ui[0]) for x in ui[1:]):
+        raise SystemExit("A/B arms faced different per-user impressions")
+    if not all(0.0 < a["ctr"] < 0.9 for a in arms.values()):
+        raise SystemExit("an A/B arm's CTR is outside (0, 0.9)")
+    if not all(t["ci_lo"] <= t["lift"] <= t["ci_hi"]
+               for t in rep["tests"].values()):
+        raise SystemExit("an A/B lift lies outside its bootstrap CI")
+    print("A/B checks: every arm faced identical impressions, user by user; "
+          "every CTR in (0, 0.9); every lift inside its CI")
+
+    # ---- kernel launches by arm -----------------------------------------
+    print(f"A/B launches by arm: {probe.launches}")
+    for name, n in probe.launches.items():
+        if n["flash_attention"] <= 0:
+            raise SystemExit(f"A/B {name}: flash_attention never launched")
+        if (n["history_merge"] > 0) != (name == "treatment"):
+            raise SystemExit(f"A/B {name}: history_merge launched "
+                             f"{n['history_merge']} times")
+    if set(probe.launches) != {"gen1"} | want_arms:
+        raise SystemExit(f"A/B runs {sorted(probe.launches)}")
+
+    # ---- times --------------------------------------------------------
+    for t in probe.trains:
+        print(f"time train_ranker {t['cutoff']}: {t['examples']} examples, "
+              f"{t['steps']} steps, {t['ms'] / t['steps']:.2f} ms a step "
+              f"(host clock around the train loop, synchronised), final "
+              f"loss {t['loss']:.4f} [{gpu}]")
+    by_arm = {}
+    for d in probe.days:
+        by_arm.setdefault(d["arm"], []).append(d)
+    for name, days in by_arm.items():
+        host = ", ".join(f"{d['wall_ms'] - d['serve_ms']:.0f}" for d in days)
+        wall = ", ".join(f"{d['wall_ms']:.0f}" for d in days)
+        print(f"time simulate_day {name}: host ms a day (without its serve "
+              f"calls) {host}; wall ms a day {wall}")
+    for name, ms in probe.serve_ms.items():
+        if name == "bootstrap":
+            continue
+        print(f"time A/B serve {name}: {np.mean(ms):.2f} ms a call (median "
+              f"{np.median(ms):.2f}, {len(ms)} calls of up to 256 users; "
+              f"host clock, ends in the slate's copy to the host) [{gpu}]")
+
+    # ---- determinism: the treatment's first A/B day again -------------
+    start = ab.bootstrap_days + ab.gen1_days
+    first = next(d for d in probe.days
+                 if d["arm"] == "treatment" and d["day"] == start)
+    a, kw = probe.platforms["treatment"]
+    plat = probe.real["make_platform"](*a, **kw)
+    again = probe.real["run_arm"]("treatment", ab, plat,
+                                  copy.deepcopy(probe.start_world["treatment"]),
+                                  range(start, start + 1), log=None)
+    res = rep["results"]["treatment"]
+    if again.day_metrics[0] != res.day_metrics[0] \
+            or not np.array_equal(again.user_impressions,
+                                  first["user_impressions"]) \
+            or not np.array_equal(again.user_watches, first["user_watches"]):
+        raise SystemExit("A/B treatment's first day differs on a rerun from "
+                         "the same world and params")
+    print(f"A/B determinism: the treatment's day {start} rerun from the same "
+          f"world snapshot and trained params: day metrics and per-user "
+          f"tallies bit for bit the first run's ({again.day_metrics[0]})")
+    del plat
+
+    # ---- kernel path against plain path at fp32, every mode ----------
+    compare_ab_modes_fp32(dev, probe, ab, cfg, start * DAY + 12 * 3600)
+
+    # ---- the kernels at the experiment's own inputs -------------------
+    time_flash_at("ab", *fa_calls[0], "A/B ranker's own inputs (S=48)",
+                  report, gpu)
+    (hm_args, hm_kw), = hm_calls
+    got = history_merge(*hm_args, **hm_kw)
+    want = history_merge_ref(*hm_args, **hm_kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise SystemExit("history_merge differs from its plain version at "
+                         "the A/B treatment's inputs")
+    print("history_merge at the A/B treatment's inputs: bit-equal to the "
+          "plain version")
+    report["history_merge"].update(
+        {f"ab_{k}": v for k, v in time_merge(
+            hm_args, hm_kw["out_len"], "the A/B treatment's inputs",
+            gpu).items()})
+    del fa_calls, hm_calls, probe, rep
+    torch.cuda.empty_cache()
+    print(f"time A/B phase: {time.perf_counter() - t_phase:.1f} s (host "
+          f"clock) [{gpu}]")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2276,11 +2644,14 @@ def main() -> int:
     ssm_gateway_launches = run_mamba2_gateway(dev, gpu, plat, now)
     run_sampled_decode(dev, gpu, plat, params, now)
     run_online_trainer(dev, gpu, plat, params, now)
+    del plat, params
+    ab_launches = run_ab_experiment(dev, gpu, report)
     missing = set(names) ^ set(report)
     if missing:
         raise SystemExit(f"kernels without a check: {sorted(missing)}")
     for name, n in (*token_launches.items(), *gateway_launches.items(),
-                    *ssm_launches.items(), *ssm_gateway_launches.items()):
+                    *ssm_launches.items(), *ssm_gateway_launches.items(),
+                    *ab_launches.items()):
         launches[name] = launches.get(name, 0) + n
     kernels = [dict(report[n], launches=launches[n]) for n in names]
     print(json.dumps({"kernels": kernels}))

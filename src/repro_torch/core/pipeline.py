@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.injection import FeatureInjector
+from repro_torch.data.loader import serve_tokens_consistent
 from repro_torch.models.common import resolve_device
 from repro_torch.models.model import Ranker
 
@@ -118,13 +119,23 @@ def _serve_core(ranker: Ranker, tokens, valid, pop_prior, *,
 class RecommenderPlatform:
     """Callable platform for the simulator: serve(users, tss) -> slates.
 
-    Serves the JAX package's "plain" mode (features straight from the
-    injector). ``params`` is the param tree (``models.model.init_params``
-    or ``weights.params_from_numpy``); the ranker runs on ``device``."""
+    ``mode`` is the JAX package's: "plain" serves the injector's features
+    under its policy; "consistent" (the paper's §IV variant) serves
+    ``[batch…, SEP, recent…]`` tokens built by
+    ``data.loader.serve_tokens_consistent`` from the batch snapshot and
+    the realtime buffer, as its model was trained. SEP is token
+    ``n_items + 1``: the ``watched`` scatter's last column absorbs it, so
+    it never reaches a slate. ``params`` is the param tree
+    (``models.model.init_params`` or ``weights.params_from_numpy``); the
+    ranker runs on ``device``."""
 
     def __init__(self, pcfg: PipelineConfig, model_cfg: ModelConfig, params,
                  injector: FeatureInjector, popularity: np.ndarray,
-                 run_batch_jobs: bool = True, device="cuda"):
+                 run_batch_jobs: bool = True, mode: str = "plain",
+                 device="cuda"):
+        if mode not in ("plain", "consistent"):
+            raise ValueError(f"unknown mode {mode!r}; expected 'plain' or "
+                             f"'consistent'")
         self.device = resolve_device(device)
         self.pcfg = pcfg
         self.model_cfg = model_cfg
@@ -134,6 +145,7 @@ class RecommenderPlatform:
             np.log(popularity * len(popularity) + 1e-9), dtype=torch.float32,
             device=self.device)
         self.run_batch_jobs = run_batch_jobs
+        self.mode = mode
         self.serve_calls = 0
         # registered observers: called with every event AFTER the stores
         # ingest it (anything with .user/.item/.ts).
@@ -154,8 +166,15 @@ class RecommenderPlatform:
         now = int(tss.max())
         if self.run_batch_jobs:
             self.injector.batch.maybe_run_due_snapshots(now)
-        items, ts_arr, valid = self.injector.features(users, now)
-        tokens = items_to_tokens(items, valid)
+        if self.mode == "consistent":
+            bf = self.injector.batch.lookup(users, now)
+            rf = self.injector.realtime.lookup(users, now)
+            tokens, valid = serve_tokens_consistent(
+                bf, rf, self.pcfg.n_items, self.injector.cfg.feature_len)
+            valid = valid.astype(np.int32)
+        else:
+            items, ts_arr, valid = self.injector.features(users, now)
+            tokens = items_to_tokens(items, valid)
 
         n = len(users)
         bpad = self.pcfg.serve_batch

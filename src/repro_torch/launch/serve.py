@@ -18,12 +18,16 @@ the micro-batching scheduler) with a deterministic seeded request trace:
 arrivals trickle in one at a time (``gateway.submit``), feedback events
 ride along between them (``gateway.observe``), panes flush on pane-full
 or deadline, and served results are claimed off the streaming surface
-(``gateway.drain``). It prints per-round throughput and the gateway's
-telemetry summary:
+(``gateway.drain``). With ``--ab`` each arrival carries its user's
+hash-assigned A/B arm (``core.ab.request_arm``, salted with ``--seed``)
+as its serving policy and tag, so control and treatment rows share the
+same panes; the last round prints its per-arm split. It prints per-round
+throughput and the gateway's telemetry summary:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch itfi-ranker \
       --reduced --device cpu --loop --users 200 --rounds 4 \
-      [--roll-midway] [--build-budget N] [--rewarm N] [--max-wait SECS]
+      [--ab] [--roll-midway] [--build-budget N] [--rewarm N] \
+      [--max-wait SECS]
 
 ``--pool SLOTS`` swaps the host LRU for the paged device-resident state
 pool (slot-table cache, indexed gather/scatter pane assembly on the
@@ -32,8 +36,7 @@ engine's device):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch itfi-ranker \
       --reduced --device cpu --loop --pool 64 --max-wait 0
 
-Per-request A/B arms (``--ab``) and the device mesh (``--mesh``) are not
-ported yet and raise.
+The device mesh (``--mesh``) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -50,7 +53,6 @@ from repro_torch.serving.engine import ServingConfig, ServingEngine
 
 DAY = 86400
 UNPORTED = {
-    "ab": "core/ab.py's arm policies (ROADMAP.md, queue 1, item 6)",
     "mesh": "the device mesh (ROADMAP.md, queue 1, item 9)",
 }
 
@@ -58,7 +60,9 @@ UNPORTED = {
 def run_loop(cfg, params, args, device) -> None:
     """Deterministic seeded request trace through the Gateway:
     per-request arrivals interleaved with feedback events, pane-full and
-    deadline flushes, and optionally a generation rollover midway."""
+    deadline flushes, optional per-request A/B arms, and optionally a
+    generation rollover midway."""
+    from repro_torch.core.ab import ARM_POLICIES, request_arm
     from repro_torch.core import (BatchFeatureStore, FeatureInjector,
                                   FeatureStoreConfig, InjectionConfig,
                                   RealtimeConfig, RealtimeFeatureService)
@@ -119,8 +123,13 @@ def run_loop(cfg, params, args, device) -> None:
                 gw.observe((int(rng.randint(0, n_users)),
                             int(rng.randint(0, n_items)), now - 30))
             u = int(rng.randint(0, n_users))
-            tickets.append(gw.submit(Request(user=u, now=now,
-                                             deadline=now + deadline)))
+            if args.ab:
+                arm = request_arm(u, salt=args.seed)
+                req = Request(user=u, now=now, policy=ARM_POLICIES[arm],
+                              tag=arm, deadline=now + deadline)
+            else:
+                req = Request(user=u, now=now, deadline=now + deadline)
+            tickets.append(gw.submit(req))
             now += 1  # one arrival per second
         served = gw.drain(now + deadline)  # tail deadline fires + claim
         sync()
@@ -151,6 +160,12 @@ def run_loop(cfg, params, args, device) -> None:
                   f"pending_rewarm={ro.pending_rewarm}")
 
     st = gw.stats()
+    if args.ab:
+        by_arm = {}
+        for t in tickets:
+            by_arm.setdefault(t.response.telemetry.tag, 0)
+            by_arm[t.response.telemetry.tag] += 1
+        print(f"last-round arms (mixed panes): {by_arm}")
     print(f"telemetry: paths={st.paths} "
           f"queue_delay p50={st.queue_delay['p50']:.0f}s "
           f"p99={st.queue_delay['p99']:.0f}s "
@@ -199,7 +214,8 @@ def main(argv=None) -> None:
                          "this many slots (replaces the host LRU; must "
                          "be >= --batch)")
     ap.add_argument("--ab", action="store_true",
-                    help="not ported: " + UNPORTED["ab"])
+                    help="--loop: per-request A/B arms (control = batch, "
+                         "treatment = inject) sharing the same panes")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
                     help="not ported: " + UNPORTED["mesh"])
     args = ap.parse_args(argv)

@@ -666,3 +666,142 @@ def test_trainer_worker_runs_while_graphs_capture(cuda):
     assert not tr._thread.is_alive()
     assert tr.steps >= 1 and tr.poll_patch() is not None
     assert len(eng.slate_graph_stats()) == 7
+
+
+# ----------------------------------------------------------------------
+# The A/B harness on the card
+# ----------------------------------------------------------------------
+
+def _ranker_attention_inputs(dev, dtype, b, s, heads, hd, seed):
+    """The ranker's attention at the A/B's shapes: left-padded history
+    validity with lengths spread over [0, S], one row with no valid key."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((b, s, heads, hd), generator=g).to(dev, dtype)
+               for _ in range(3))
+    pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+    lengths = torch.randint(0, s + 1, (b,), generator=g).to(dev)
+    lengths[0] = 0
+    kvalid = pos >= (s - lengths)[:, None]
+    return q, k, v, pos.contiguous(), pos.contiguous(), kvalid.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_ab_shapes(cuda, dtype):
+    """``flash_attention`` at the A/B ranker's shape (B 256, S 48, 8 heads
+    of 32) within the kernel tolerances, and ``history_merge`` at the
+    treatment arm's (Lb = K = 48, Lr = 16) bit for bit."""
+    args = _ranker_attention_inputs(cuda, dtype, 256, 48, 8, 32, seed=48)
+    before = flash_attention.launches
+    got = flash_attention(*args)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), attention_ref(*args).float(),
+                               atol=tol, rtol=tol)
+    rng = np.random.RandomState(16)
+    for b in (256, 37):
+        arrs = [rng.randint(0, 4864, (b, 48)), rng.randint(0, 10**6, (b, 48)),
+                rng.rand(b, 48) < 0.7, rng.randint(0, 4864, (b, 16)),
+                rng.randint(5 * 10**5, 10**6, (b, 16)), rng.rand(b, 16) < 0.5]
+        arrs[3][:, ::3] = arrs[0][:, :16][:, ::3]      # re-watched items
+        t = [torch.from_numpy(np.asarray(a, np.int32)).to(cuda)
+             for a in arrs]
+        for g, w in zip(history_merge(*t, out_len=48),
+                        history_merge_ref(*t, out_len=48)):
+            assert torch.equal(g, w)
+
+
+def _ab_micro(**kw):
+    from repro_torch.core.ab import ABConfig
+    from repro_torch.data.synthetic import WorldConfig
+    base = dict(world=WorldConfig(n_users=50, n_items=250,
+                                  sessions_per_day=1.5, seed=0),
+                bootstrap_days=2, gen1_days=1, ab_days=2, feature_len=24,
+                train_epochs=1, train_batch=32, max_examples=1500,
+                latency_arms=(3600,))
+    return ABConfig(**{**base, **kw})
+
+
+def test_run_experiment_cuda_micro(cuda):
+    """The whole experiment on the card at the integration test's scale:
+    every arm present, identical impressions user by user (common random
+    numbers), and a second run bit for bit the first."""
+    from repro_torch.core.ab import run_experiment
+    runs = [run_experiment(_ab_micro(), log=None, device=cuda)
+            for _ in range(2)]
+    for rep in runs:
+        assert set(rep["arms"]) == {"control", "treatment", "consistent",
+                                    "stale_3600s"}
+        ui = [r.user_impressions for r in rep["results"].values()]
+        for x in ui[1:]:
+            np.testing.assert_array_equal(x, ui[0])
+        for a in rep["arms"].values():
+            assert 0.0 < a["ctr"] < 0.9
+    assert runs[0]["arms"] == runs[1]["arms"]
+    assert runs[0]["tests"] == runs[1]["tests"]
+    for name, res in runs[0]["results"].items():
+        other = runs[1]["results"][name]
+        assert res.day_metrics == other.day_metrics
+        np.testing.assert_array_equal(res.user_watches, other.user_watches)
+
+
+@pytest.mark.parametrize("mode", ["plain", "consistent"])
+def test_ab_serve_kernel_vs_plain_fp32(cuda, mode):
+    """One serve call of every user at fp32: the kernel path (the ranker's
+    ``flash_attention``, the treatment's ``history_merge``) against the
+    plain path on the same card. The tokens are equal, and a slate may
+    differ only on a row whose top candidate scores tie within 1e-4."""
+    from unittest import mock
+
+    from repro_torch.core import injection as injection_mod
+    from repro_torch.core import pipeline as pipeline_mod
+    from repro_torch.core.ab import default_sim_model, make_platform
+    from repro_torch.data.synthetic import (World, bootstrap_serve_fn,
+                                            simulate_day)
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models.model import init_params
+
+    ab = _ab_micro()
+    world = World(ab.world)
+    serve0 = bootstrap_serve_fn(world, 0)
+    events = []
+    for day in range(3):
+        events += simulate_day(world, day, serve0, lambda e: None, seed=0)[0]
+    cfg = default_sim_model(ab.world.n_items)
+    params = init_params(cfg, torch.Generator().manual_seed(1),
+                         torch.float32, cuda)
+    plat = make_platform(ab, cfg, params, world, events, policy="inject",
+                         mode=mode, device=cuda)
+    users = np.arange(ab.world.n_users)
+    tss = np.full(len(users), 3 * 86400 + 6 * 3600)
+    seen = []
+    real = pipeline_mod._serve_core
+
+    def spy(ranker, tokens, valid, pop, **kw):
+        out = real(ranker, tokens, valid, pop, **kw)
+        last = ranker(tokens.long(), valid=valid > 0, last_only=True)[:, -1]
+        seen.append((tokens.clone(), out[0], out[1], last))
+        return out
+    with mock.patch.object(pipeline_mod, "_serve_core", spy):
+        merges = plat.injector.merge_calls
+        before = (flash_attention.launches, history_merge.launches)
+        plat.serve(users, tss)
+        assert flash_attention.launches > before[0]
+        assert (history_merge.launches > before[1]) == (mode == "plain")
+        assert (plat.injector.merge_calls > merges) == (mode == "plain")
+        with mock.patch.object(attention_mod, "flash_attention",
+                               attention_ref), \
+                mock.patch.object(injection_mod, "history_merge",
+                                  history_merge_ref):
+            plat.serve(users, tss)
+    (k_tok, k_slate, k_cand, k_last), (p_tok, p_slate, p_cand, p_last) = seen
+    assert torch.equal(k_tok, p_tok) and torch.equal(k_cand, p_cand)
+    torch.testing.assert_close(k_last, p_last, atol=1e-4, rtol=1e-4)
+    differ = (k_slate != p_slate).any(1)
+    if differ.any():
+        c = p_cand.shape[1]
+        dup = ((p_cand[:, :, None] == p_cand[:, None, :]) & torch.ones(
+            c, c, dtype=torch.bool, device=cuda).tril(-1)).any(-1)
+        scores = torch.gather(p_last, 1, p_cand + 1).masked_fill(dup, -1e9)
+        top = scores[differ].sort(1, descending=True).values[:, :11]
+        assert ((top[:, :-1] - top[:, 1:]).min(1).values <= 1e-4).all()

@@ -88,6 +88,20 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         ServingEngine(cfg, params, scfg)
     ServingEngine(cfg, params, scfg, device="cpu")
 
+    from repro_torch.core.ab import (ABConfig, make_platform, run_experiment,
+                                     train_ranker)
+    from repro_torch.data.synthetic import World, WorldConfig
+    ab = ABConfig(world=WorldConfig(n_users=4, n_items=pcfg.n_items),
+                  bootstrap_days=0)
+    world = World(ab.world)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_platform(ab, cfg, params, world, [], policy="batch")
+    make_platform(ab, cfg, params, world, [], policy="batch", device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_ranker([], cfg, ab, "midnight", log=None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_experiment(ab, model_cfg=cfg, log=None)
+
 
 def test_serve_launcher_runs_on_cpu_without_jax():
     """``python -m repro_torch.launch.serve`` runs the three-phase token

@@ -337,13 +337,14 @@ def test_attach_trainer_version_check():
 @pytest.mark.parametrize("extra,ok", [
     (["--roll-midway", "--rewarm", "4", "--max-wait", "3"], True),
     (["--build-budget", "10", "--roll-midway"], True),
-    (["--pool", "8", "--roll-midway"], True), (["--ab"], False),
-    (["--mesh", "2,1"], False)])
+    (["--pool", "8", "--roll-midway"], True),
+    (["--ab", "--roll-midway"], True), (["--mesh", "2,1"], False)])
 def test_serve_launcher_loop_on_cpu_without_jax(extra, ok):
     """``python -m repro_torch.launch.serve --loop`` drives the Gateway
     with a seeded trace on the CPU, with ``jax`` made unimportable, from
-    the host LRU or (``--pool``) the paged state pool; the parts not
-    ported yet stop it with a message naming their item."""
+    the host LRU or (``--pool``) the paged state pool, with ``--ab``'s
+    per-request arms; the parts not ported yet stop it with a message
+    naming their item."""
     import os
     import subprocess
     import sys
@@ -374,3 +375,42 @@ def test_serve_launcher_loop_on_cpu_without_jax(extra, ok):
     if "--pool" in extra:
         assert "paged state pool: 8 device slots" in out.stdout
         assert "'slots': 8" in out.stdout
+    assert ("last-round arms (mixed panes): {" in out.stdout) \
+        == ("--ab" in extra), out.stdout
+
+
+def _launcher_out(pkg, argv, **env):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    code = ("import runpy, sys\n"
+            f"sys.argv = {['serve'] + argv!r}\n"
+            f"runpy.run_module('{pkg}.launch.serve', run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code],
+                         env=dict(os.environ, PYTHONPATH=str(root / "src"),
+                                  **env),
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    return out.stdout
+
+
+def test_serve_launcher_ab_split_equals_jax():
+    """``--loop --ab`` on the CPU: the port's launcher assigns the same
+    users to the same arms as the JAX launcher on the same seed, so the
+    last round's per-arm split is the same line in both."""
+    argv = ["--arch", "itfi-ranker", "--reduced", "--loop", "--users", "40",
+            "--rounds", "2", "--batch", "4", "--history", "32", "--fresh",
+            "8", "--ab", "--seed", "3"]
+    want = _launcher_out("repro", argv, JAX_PLATFORMS="cpu")
+    got = _launcher_out("repro_torch", argv + ["--device", "cpu"])
+
+    def split(text):
+        lines = [x for x in text.splitlines()
+                 if x.startswith("last-round arms (mixed panes): ")]
+        assert len(lines) == 1, text
+        return lines[0]
+    assert split(got) == split(want)
+    assert "'control'" in split(got) and "'treatment'" in split(got)

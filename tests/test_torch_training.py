@@ -122,6 +122,28 @@ def test_lr_schedule_bit_equal(cfg_kw):
             0.0010000000474974513
 
 
+@pytest.mark.parametrize("cfg_kw", [
+    {}, dict(lr=1e-3, warmup_steps=50, total_steps=10),
+    dict(lr=3e-2, warmup_steps=2, total_steps=1000, min_lr_ratio=0.0)])
+def test_lr_schedule_every_step(cfg_kw):
+    """Every step, one 0-dim step at a time as the train step calls it,
+    against the JAX function called eagerly: bit-equal through the warmup,
+    and within 1e-6 relative (1e-7 of ``lr`` absolute) on the cosine,
+    where ``torch.cos`` and XLA's cos differ by a few float32 ulps. (Under
+    ``jax.jit`` the JAX function itself gives some warmup steps one ulp
+    off its eager value.)"""
+    jcfg = jax_opt.AdamWConfig(**cfg_kw)
+    cfg = optimizer.AdamWConfig(**cfg_kw)
+    steps = range(min(cfg.total_steps + 8, 1200))
+    want = np.array([np.asarray(jax_opt.lr_schedule(jcfg, jnp.int32(s)))
+                     for s in steps])
+    got = np.array([optimizer.lr_schedule(
+        cfg, torch.tensor(s, dtype=torch.int32)).numpy() for s in steps])
+    w = min(cfg.warmup_steps, len(want))
+    assert got[:w].tobytes() == want[:w].tobytes()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7 * cfg.lr)
+
+
 NO_DECAY = ("scale", "norm_scale", "A_log", "D", "dt_bias", "bq", "bk", "bv",
             "conv_bias_x", "conv_bias_B", "conv_bias_C")
 
