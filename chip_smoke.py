@@ -98,7 +98,29 @@
    may differ only on a row whose top scores tie within 1e-4); both
    kernels held against and timed beside their plain versions at the
    experiment's own inputs; each ``train_ranker``, ``simulate_day`` and
-   serve call timed.
+   serve call timed;
+18. the scenario harness (``serving/loadgen.py``) through the Gateway:
+   (a) ``run_scenario`` of every named scenario at the harness's own
+   fp32 engines (a 2-layer, 64-wide ranker; ``mixed_fleet`` on reduced
+   ``llama3.2-1b``, ``mamba2-780m`` and ``granite-moe-3b-a800m``): every
+   trace fingerprint, and every sim-time metric and gateway counter the
+   reference still reproduces (``RECORD_*``), must equal the JAX
+   package's record in ``BENCH_scenarios.json`` (read as data), and
+   every SLO gate, the wall-clock budgets included, must pass; (b)
+   ``churn_heavy`` at smoke size, fp32, through the kernel path and the
+   plain path (equal slates but on rows whose top first-logit scores tie
+   within 1e-4, which are counted; scores within 1e-4), and the kernel
+   path again, bit for bit the first; (c) at full width with bf16 weights
+   from the seed, the four single-arch scenarios on ``itfi-ranker`` and
+   ``mixed_fleet`` on ``llama3.2-1b``, ``mamba2-780m`` and
+   ``granite-moe-3b-a800m`` (one at a time, each freed before the next),
+   each through ``build_gateway(spec, engine=...)``: trace fingerprints
+   and sim-time counters must equal the record, and a second
+   ``churn_heavy`` replay must serve bit for bit the first. The harness's
+   wall-clock budgets were calibrated on the tiny models on a CPU host,
+   so at full width they are printed with budget and actual, not
+   asserted. Each replay prints its seconds, requests/s, ``wall_ms_p99``
+   by path group and its kernel launches.
 
 It needs a CUDA device: without one it exits non-zero and prints no result.
 The line before the last is the card's name and power limit; the last line
@@ -108,6 +130,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import functools
 import json
 import math
@@ -154,6 +177,21 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_USERS = 256, 256, 512
 # the A/B experiment: ABConfig's world of 800 users (its items are the
 # ranker's catalog, vocab - 256), and the users of the fp32 serve call
 AB_USERS, AB_FP32_USERS = 800, 256
+# the scenario harness: the single-arch scenarios' full-width model, the
+# kernels its replays launch, and the fields held against the JAX
+# package's record. The record predates the reference's handoff
+# retention: its rollover "invalidated" and cache counters are not what
+# the JAX package gives today (tests/test_torch_scenarios_fleet.py holds
+# the port to today's), so they are printed, not compared.
+SCENARIO_WIDE = "itfi-ranker"
+SCENARIO_KERNELS = ("flash_attention", "decode_attention", "ssd_scan")
+RECORD_METRICS = ("requests", "served", "shed", "deadline_misses",
+                  "hit_rate", "queue_delay", "paths")
+RECORD_COUNTERS = ("requests", "panes", "prefill_calls", "inject_calls",
+                   "decode_steps", "deadline_flushes", "shed",
+                   "deadline_misses", "paths", "queue_delay")
+RECORD_ROLLOVER = ("rollovers", "rekeyed", "rebuilt", "build_steps",
+                   "pending_build_users", "pending_rewarm")
 
 
 def card() -> str:
@@ -2611,6 +2649,303 @@ def run_ab_experiment(dev, gpu, report):
           f"clock) [{gpu}]")
     return launches
 
+# ----------------------------------------------------------------------
+# The scenario harness through the Gateway
+# ----------------------------------------------------------------------
+
+def scenario_record():
+    """The JAX package's scenario record, by (name, arch)."""
+    with open(os.path.join(ROOT, "BENCH_scenarios.json")) as f:
+        return {(r["name"], r["arch"]): r for r in json.load(f)["results"]}
+
+
+def record_mismatches(result, want):
+    """{field: (got, recorded)} over the sim-time metrics and gateway
+    counters that the record holds and the reference still gives
+    (``RECORD_*``), for a ``ScenarioResult.as_dict()``-shaped ``result``
+    and the record's entry ``want``. The record predates the "decay"
+    path: a path it lacks must be 0."""
+    bad = {}
+
+    def cmp(name, got, rec):
+        if name.endswith(".paths"):
+            got = {k: v for k, v in got.items() if k in rec or v}
+        if got != rec:
+            bad[name] = (got, rec)
+
+    for k in RECORD_METRICS:
+        cmp(f"metrics.{k}", result["metrics"][k], want["metrics"][k])
+    got, rec = result["gateway_stats"], want["gateway_stats"]
+    for k in RECORD_COUNTERS:
+        cmp(f"gateway_stats.{k}", got[k], rec[k])
+    for k in RECORD_ROLLOVER:
+        cmp(f"gateway_stats.rollover.{k}", got["rollover"][k],
+            rec["rollover"][k])
+    return bad
+
+
+def timed_replay(replay, gw, trace, spec, runs):
+    """``replay`` (``loadgen.replay``) from a device synchronise to a device
+    synchronise, with the scenario kernels' counters set to 0 just before
+    it and read just after; appends {"s", "launches", "tickets"} to
+    ``runs`` and returns the tickets."""
+    import torch
+    ops = kernel_ops(SCENARIO_KERNELS)
+    torch.cuda.synchronize()
+    for op in ops.values():
+        op.launches = 0
+    t0 = time.perf_counter()
+    tickets = replay(gw, trace, spec)
+    torch.cuda.synchronize()
+    runs.append({"s": time.perf_counter() - t0, "tickets": tickets,
+                 "launches": {n: op.launches for n, op in ops.items()}})
+    return tickets
+
+
+def report_replay(label, result, run, gpu, record, wall_gates="assert"):
+    """Print one scenario x arch replay and hold it against the record:
+    the trace fingerprint and ``record_mismatches``; the SLO gates must
+    all pass (``wall_gates="assert"``) or all but the wall-clock ones,
+    which are printed with budget and actual ("print")."""
+    name, arch = result["name"], result["arch"]
+    m, st = result["metrics"], result["gateway_stats"]
+    want = record[(name, arch)]
+    wall = ", ".join(f"{g} {'-' if v is None else f'{v:.2f}'}"
+                     for g, v in m["wall_ms_p99"].items())
+    print(f"scenario {label}: {m['requests']} requests ({m['served']} "
+          f"served, {m['shed']} shed, hit rate {m['hit_rate']:.4f}) in "
+          f"{st['panes']} panes, replay {run['s']:.3f} s, "
+          f"{m['requests'] / run['s']:.1f} requests/s (host clock, ending "
+          f"in a device synchronise); wall_ms_p99 {wall}; launches "
+          f"{run['launches']}; trace {result['trace_fingerprint']}, slates "
+          f"{result['slate_fingerprint']} [{gpu}]")
+    print(f"  against the record: trace {want['trace_fingerprint']}; "
+          f"rollover invalidated {st['rollover']['invalidated']} (record "
+          f"{want['gateway_stats']['rollover']['invalidated']}, retained "
+          f"{st['rollover']['retained']}), cache {st['cache']} (record "
+          f"{want['gateway_stats']['cache']})")
+    if result["trace_fingerprint"] != want["trace_fingerprint"]:
+        raise SystemExit(f"scenario {label}: trace fingerprint "
+                         f"{result['trace_fingerprint']} != the record's")
+    bad = record_mismatches(result, want)
+    if bad:
+        raise SystemExit(f"scenario {label}: differs from the record: {bad}")
+    for g in result["gates"]:
+        wall_gate = g["gate"].startswith(("wall_ms_p99", "boundary_slice"))
+        if wall_gate and wall_gates == "print":
+            print(f"  wall gate {g['gate']}: budget {g['budget']}, actual "
+                  f"{g['actual']}, {'met' if g['pass'] else 'MISSED'} "
+                  f"[{gpu}]")
+        elif not g["pass"]:
+            raise SystemExit(f"scenario {label}: SLO gate failed: {g}")
+    print(f"  {label}: fingerprint and counters equal the record; "
+          f"{'every gate passed' if wall_gates == 'assert' else 'every sim-time gate passed'}")
+
+
+def scenario_result(loadgen, spec, gw, trace, tickets):
+    """``run_scenario``'s ``ScenarioResult`` of one replay, as a dict."""
+    st = gw.stats()
+    metrics = loadgen.collect_metrics(tickets, st)
+    passed, gates = loadgen.evaluate_slo(spec.slo, metrics)
+    return loadgen.ScenarioResult(
+        name=spec.name, arch=spec.archs[0] if spec.archs else None,
+        trace_fingerprint=trace.fingerprint,
+        slate_fingerprint=loadgen.slate_fingerprint(tickets),
+        metrics=metrics, gates=gates, slo_pass=passed,
+        gateway_stats=st.as_dict()).as_dict()
+
+
+def replay_with_engine(loadgen, spec, eng, runs, plain=()):
+    """``_compile_warmup``, ``build_gateway(spec, engine=eng)``, warm the
+    seen users and a timed replay; with ``plain`` (patches) all of it
+    runs the plain versions and the eager slate loop. Returns (gateway,
+    trace, tickets)."""
+    trace = loadgen.make_trace(spec)
+    with contextlib.ExitStack() as stack:
+        for module, name, fn in plain:
+            stack.enter_context(mock.patch.object(module, name, fn))
+        stack.enter_context(slate_loop(eng, bool(plain)))
+        loadgen._compile_warmup(spec, None, engine=eng)
+        gw = loadgen.build_gateway(spec, engine=eng)
+        gw.warm(np.arange(spec.seen_users or spec.n_users), spec.start)
+        tickets = timed_replay(loadgen.replay, gw, trace, spec, runs)
+    return gw, trace, tickets
+
+
+def compare_scenario_paths(dev, loadgen, eng, gpu):
+    """(b): churn_heavy at smoke size, fp32, kernel path, plain path,
+    kernel path: slates equal but on rows whose plain top first-logit
+    scores tie within 1e-4 (counted), scores within 1e-4, and the second
+    kernel replay bit for bit the first."""
+    import torch
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import attention as attention_mod
+
+    spec = loadgen.get_scenario("churn_heavy", smoke=True)
+    plain = ((attention_mod, "flash_attention", attention_ref),
+             (attention_mod, "decode_attention", decode_attention_ref))
+    runs = []
+    gw, _, k1 = replay_with_engine(loadgen, spec, eng, runs)
+    p = replay_with_engine(loadgen, spec, eng, runs, plain)[2]
+    k2 = replay_with_engine(loadgen, spec, eng, runs)[2]
+    if runs[0]["launches"]["decode_attention"] <= 0 or \
+            runs[0]["launches"]["flash_attention"] <= 0 or \
+            any(runs[1]["launches"].values()):
+        raise SystemExit(f"churn_heavy kernel vs plain: launches "
+                         f"{[r['launches'] for r in runs]}")
+    if [t.response.shed for t in k1] != [t.response.shed for t in p]:
+        raise SystemExit("churn_heavy: shed markers differ, kernel vs plain")
+    served = [(a.response, b.response) for a, b in zip(k1, p)
+              if not a.response.shed]
+    ks = torch.from_numpy(np.stack([a.scores for a, _ in served]))
+    ps = torch.from_numpy(np.stack([b.scores for _, b in served]))
+    err = float((ks - ps).abs().max())
+    torch.testing.assert_close(ks, ps, atol=E2E_TOL, rtol=E2E_TOL)
+    flipped = np.flatnonzero([not np.array_equal(a.slate, b.slate)
+                              for a, b in served])
+    top = ps[flipped].sort(1, descending=True).values[
+        :, :gw.cfg.slate_len + 1]
+    gaps = (top[:, :-1] - top[:, 1:]).min(1).values.tolist() \
+        if len(flipped) else []
+    fp1, fp2 = (loadgen.slate_fingerprint(k1),
+                loadgen.slate_fingerprint(k2))
+    print(f"scenario churn_heavy (smoke) fp32, kernel path vs plain path: "
+          f"{len(served)} served responses, scores max abs err {err:.3g} "
+          f"(tolerance {E2E_TOL}), {len(flipped)} slates differ, smallest "
+          f"top-score gap of each: {[f'{g:.3g}' for g in gaps]}; kernel "
+          f"replays {fp1}, {fp2}; launches "
+          f"{[r['launches'] for r in runs]}; replay s "
+          f"{[round(r['s'], 3) for r in runs]} [{gpu}]")
+    if any(g > E2E_TOL for g in gaps):
+        raise SystemExit("churn_heavy: a slate differs on a row whose top "
+                         "scores are separated by more than the tolerance")
+    if fp1 != fp2:
+        raise SystemExit("churn_heavy: the second kernel replay differs")
+
+
+def full_width_engine(dev, arch, spec):
+    """A registered arch at full width, bf16 weights from the seed drawn
+    on the card, behind the scenario's ServingConfig."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    cfg = get_config(arch)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         torch.bfloat16, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    eng = ServingEngine(cfg, params, ServingConfig(
+        max_batch=spec.max_batch, prefill_len=spec.prefill_len,
+        inject_len=spec.inject_len,
+        cache_capacity=spec.prefill_len + spec.inject_len + 64), device=dev)
+    del params
+    torch.cuda.empty_cache()
+    print(f"scenario engine {arch}: {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {n_params / 1e9:.3f} B params "
+          f"({cfg.active_param_count() / 1e9:.3f} B active a token) in "
+          f"bf16 from seed {SEED}; panes of {spec.max_batch}, prefill "
+          f"{spec.prefill_len}, inject {spec.inject_len}")
+    return eng
+
+
+def run_scenarios(dev, gpu):
+    """Phase 18: the named traffic scenarios through the port's Gateway,
+    (a) at the harness's own fp32 engines against the JAX package's
+    record with every gate asserted, (b) kernel path against plain path
+    on churn_heavy, (c) at full width with bf16 weights. The harness's
+    wall-clock budgets were calibrated on the tiny models on a CPU host
+    (``serving/loadgen.py``'s ``_WALL_BUDGETS``), so at full width they
+    are printed, not asserted. Returns the kernels' launches in the
+    replays of (a) and (c)."""
+    import gc
+
+    import torch
+    from repro_torch.serving import loadgen
+
+    t_phase = time.perf_counter()
+    record = scenario_record()
+    launches = dict.fromkeys(SCENARIO_KERNELS, 0)
+
+    def add(runs):
+        for run in runs:
+            for n, k in run["launches"].items():
+                launches[n] += k
+
+    # ---- (a) the harness's own engines, fp32 --------------------------
+    for name in loadgen.SCENARIO_NAMES:
+        spec = loadgen.get_scenario(name)
+        runs = []
+        real = loadgen.replay
+        t0 = time.perf_counter()
+        with mock.patch.object(loadgen, "replay", lambda gw, tr, sp:
+                               timed_replay(real, gw, tr, sp, runs)):
+            results = loadgen.run_scenario(spec, device=dev)
+        wall_s = time.perf_counter() - t0
+        print(f"scenario {name} (harness engines, fp32): run_scenario "
+              f"{wall_s:.2f} s in all (warm-up, warm and replay) [{gpu}]")
+        for res, run in zip(results, runs):
+            report_replay(f"{name} [{res.arch or 'harness ranker'}, fp32]",
+                          res.as_dict(), run, gpu, record)
+        add(runs)
+
+    # ---- (b) kernel path against plain path ---------------------------
+    spec = loadgen.get_scenario("churn_heavy", smoke=True)
+    compare_scenario_paths(dev, loadgen, loadgen._engine_for(spec, None, dev),
+                           gpu)
+    loadgen._ENGINE_CACHE.clear()
+
+    # ---- (c) full width, bf16 -----------------------------------------
+    wide = [(SCENARIO_WIDE, n) for n in loadgen.SCENARIO_NAMES
+            if not loadgen.get_scenario(n).archs]
+    wide += [(a, "mixed_fleet")
+             for a in loadgen.get_scenario("mixed_fleet").archs]
+    eng, eng_arch = None, None
+    for arch, name in wide:
+        spec = loadgen.get_scenario(name)
+        if eng_arch != arch:
+            eng = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            eng, eng_arch = full_width_engine(dev, arch, spec), arch
+        if spec.archs:
+            spec = dataclasses.replace(spec, archs=(arch,))
+        runs = []
+        t0 = time.perf_counter()
+        gw, trace, tickets = replay_with_engine(loadgen, spec, eng, runs)
+        wall_s = time.perf_counter() - t0
+        res = scenario_result(loadgen, spec, gw, trace, tickets)
+        print(f"scenario {name} on {arch} (full width, bf16): "
+              f"{wall_s:.2f} s in all (warm-up, warm and replay) [{gpu}]")
+        if arch == "mamba2-780m":
+            c = gw.cache.stats()
+            print(f"  mamba2 host LRU: {c['entries']} entries, "
+                  f"{c['bytes_per_shard'] / 1e9:.2f} GB of host memory "
+                  f"({c['bytes_per_shard'] / max(c['entries'], 1) / 1e6:.1f}"
+                  f" MB an entry)")
+        report_replay(f"{name} [{arch}, bf16]", res, runs[0], gpu, record,
+                      wall_gates="print")
+        add(runs)
+        if name == "churn_heavy":
+            again = []
+            _, _, tickets2 = replay_with_engine(loadgen, spec, eng, again)
+            fp2 = loadgen.slate_fingerprint(tickets2)
+            print(f"  churn_heavy [{arch}, bf16] again: slates {fp2} "
+                  f"(first {res['slate_fingerprint']}), replay "
+                  f"{again[0]['s']:.3f} s, launches {again[0]['launches']}")
+            if fp2 != res["slate_fingerprint"]:
+                raise SystemExit("churn_heavy at full width: the second "
+                                 "replay differs from the first")
+            add(again)
+        del gw, tickets
+    eng = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"time scenario phase: {time.perf_counter() - t_phase:.1f} s "
+          f"(host clock); launches {launches} [{gpu}]")
+    return launches
+
 
 def main() -> int:
     import torch
@@ -2646,12 +2981,13 @@ def main() -> int:
     run_online_trainer(dev, gpu, plat, params, now)
     del plat, params
     ab_launches = run_ab_experiment(dev, gpu, report)
+    scenario_launches = run_scenarios(dev, gpu)
     missing = set(names) ^ set(report)
     if missing:
         raise SystemExit(f"kernels without a check: {sorted(missing)}")
     for name, n in (*token_launches.items(), *gateway_launches.items(),
                     *ssm_launches.items(), *ssm_gateway_launches.items(),
-                    *ab_launches.items()):
+                    *ab_launches.items(), *scenario_launches.items()):
         launches[name] = launches.get(name, 0) + n
     kernels = [dict(report[n], launches=launches[n]) for n in names]
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,7 @@
 """Unified model/config system (copy of the JAX package's ``configs/base.py``).
 
-Every architecture is expressed as a ``ModelConfig``, a frozen dataclass.
-The port registers the paper's own ranker and ``mamba2-780m`` so far
-(``archs.py``); the MoE sub-config and the parameter counts come with the
-slices that port those architectures.
+Every architecture is expressed as a ``ModelConfig``, a frozen dataclass;
+the port registers the same ones (``archs.py``).
 
 Layer-type schedule
 -------------------
@@ -15,13 +13,33 @@ SSMs (mamba2) and the Jamba hybrid (attn:mamba 1:7, MoE every other layer).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 VOCAB_PAD_MULTIPLE = 256
 
 
 def pad_vocab(v: int, multiple: int = VOCAB_PAD_MULTIPLE) -> int:
     return ((v + multiple - 1) // multiple) * multiple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0
+    top_k: int = 0
+    # which layers get an MoE MLP: every `period` layers, offset `offset`.
+    period: int = 1
+    offset: int = 0
+    # router options
+    router_jitter: float = 0.0
+    load_balance_coef: float = 0.01
+    # tokens-per-expert buffer size = seq * top_k * capacity_factor / E.
+    # Train default 1.25 (GShard-style dropping); set to n_experts/top_k
+    # (or use ``no_drop()``) for drop-free eval/serving.
+    capacity_factor: float = 1.25
+
+    def no_drop(self) -> "MoEConfig":
+        return dataclasses.replace(
+            self, capacity_factor=float(self.n_experts) / self.top_k)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,9 +73,7 @@ class ModelConfig:
     sliding_window: int = 0  # 0 = full attention
     qkv_bias: bool = False  # qwen-style attention bias
     tie_embeddings: bool = False
-    # the JAX package's MoEConfig (MoE is not ported: the model raises on
-    # it); None for the stacks the port runs
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # modality frontend stubs (vlm/audio): number of prefix embedding
     # positions supplied externally as precomputed patch/frame embeddings.
@@ -113,6 +129,49 @@ class ModelConfig:
                 kinds.append("dense")
         return tuple(kinds)
 
+    # ------------------------------------------------------------------
+    def param_count(self) -> int:
+        """Total parameter count (true vocab, not padded)."""
+        d, hd = self.d_model, self.head_dim_
+        total = self.vocab_size * d  # embed
+        if not self.tie_embeddings:
+            total += self.vocab_size * d  # lm head
+        lk, mk = self.layer_kinds(), self.mlp_kinds()
+        for kind, mlp in zip(lk, mk):
+            total += 2 * d  # two norms (scale only)
+            if kind == "attn":
+                total += d * self.n_heads * hd  # q
+                total += 2 * d * self.n_kv_heads * hd  # k, v
+                total += self.n_heads * hd * d  # o
+                if self.qkv_bias:
+                    total += (self.n_heads + 2 * self.n_kv_heads) * hd
+            else:  # ssm (mamba2)
+                s = self.ssm or SSMConfig()
+                din, nh = self.d_inner, self.n_ssm_heads
+                total += d * (2 * din + 2 * s.d_state + nh)  # in_proj
+                total += s.conv_width * (din + 2 * s.d_state)  # conv
+                total += nh * 2  # A_log, D
+                total += din  # gate norm scale
+                total += din * d  # out_proj
+            if mlp == "dense":
+                total += 3 * d * self.d_ff  # gate, up, down (swiglu)
+            elif mlp == "moe":
+                m = self.moe
+                total += d * m.n_experts  # router
+                total += m.n_experts * 3 * d * self.d_ff
+        total += d  # final norm
+        return total
+
+    def active_param_count(self) -> int:
+        """Parameters active per token (MoE top-k instead of all experts)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        n_moe_layers = sum(1 for k in self.mlp_kinds() if k == "moe")
+        inactive = n_moe_layers * (m.n_experts - m.top_k) * 3 \
+            * self.d_model * self.d_ff
+        return self.param_count() - inactive
+
     def validate(self) -> None:
         assert self.d_model % 16 == 0, f"{self.name}: d_model must divide TP=16"
         assert self.vocab_padded % 256 == 0
@@ -152,7 +211,6 @@ def _ensure_loaded() -> None:
     if _REGISTRY:
         return
     from repro_torch.configs import archs  # noqa: F401
-
 
 
 def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 256,

@@ -36,6 +36,16 @@ engine's device):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch itfi-ranker \
       --reduced --device cpu --loop --pool 64 --max-wait 0
 
+``--scenario NAME`` replays one named production traffic scenario
+(``serving/loadgen.py``: diurnal, flash_crowd, cold_start_storm,
+churn_heavy, mixed_fleet) through the Gateway on ``--device`` and prints
+its SLO scorecard; ``--smoke`` shrinks the trace. mixed_fleet keeps its
+own roster of reduced archs; every other scenario runs on the harness's
+tiny ranker, or on a reduced variant of ``--arch`` when given:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --scenario diurnal \
+      --smoke --device cpu
+
 The device mesh (``--mesh``) is not ported yet and raises.
 """
 from __future__ import annotations
@@ -178,9 +188,40 @@ def run_loop(cfg, params, args, device) -> None:
     print(f"stats: {st.as_dict()}")
 
 
+def run_scenario_cli(args, device) -> None:
+    """--scenario NAME: replay one named traffic scenario against the
+    chosen arch and print the SLO scorecard (the JAX launcher's lines)."""
+    import dataclasses
+
+    from repro_torch.serving.loadgen import get_scenario, run_scenario
+
+    spec = get_scenario(args.scenario, smoke=args.smoke)
+    if args.arch and not spec.archs:
+        spec = dataclasses.replace(spec, archs=(args.arch,))
+    print(f"scenario {spec.name}: horizon={spec.horizon}s "
+          f"users={spec.n_users} shed_policy={spec.shed_policy}")
+    for res in run_scenario(spec, device=device):
+        m = res.metrics
+        print(f"\n[{res.arch}] trace={res.trace_fingerprint} "
+              f"slates={res.slate_fingerprint}")
+        print(f"  requests={m['requests']} served={m['served']} "
+              f"shed={m['shed']} deadline_misses={m['deadline_misses']} "
+              f"hit_rate={m['hit_rate']:.2f}")
+        print(f"  queue delay p50/p99/max = {m['queue_delay']['p50']:.0f}/"
+              f"{m['queue_delay']['p99']:.0f}/{m['queue_delay']['max']}s")
+        for g in res.gates:
+            mark = "PASS" if g["pass"] else "FAIL"
+            print(f"  [{mark}] {g['gate']:22s} budget={g['budget']} "
+                  f"actual={g['actual']}")
+        print(f"  SLO: {'PASS' if res.slo_pass else 'FAIL'}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", default=None,
+                    help="registered model config (required unless "
+                         "--scenario, which defaults to its own tiny "
+                         "ranker / fleet roster)")
     ap.add_argument("--reduced", action="store_true",
                     help="a 2-layer, 256-wide variant of --arch")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -218,12 +259,25 @@ def main(argv=None) -> None:
                          "treatment = inject) sharing the same panes")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
                     help="not ported: " + UNPORTED["mesh"])
+    ap.add_argument("--scenario", default=None, metavar="NAME",
+                    help="replay a named production traffic scenario "
+                         "(diurnal / flash_crowd / cold_start_storm / "
+                         "churn_heavy / mixed_fleet) through the Gateway "
+                         "against this --arch (reduced shapes) and print "
+                         "the SLO scorecard; --smoke shrinks the trace")
+    ap.add_argument("--smoke", action="store_true",
+                    help="--scenario: short-horizon variant of the trace")
     args = ap.parse_args(argv)
     for name, what in UNPORTED.items():
         if getattr(args, name) not in (None, False):
             ap.error(f"--{name} needs {what}, which is not ported yet")
 
     device = resolve_device(args.device)
+    if args.scenario:
+        run_scenario_cli(args, device)
+        return
+    if args.arch is None:
+        ap.error("--arch is required (except with --scenario)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)

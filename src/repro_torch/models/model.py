@@ -1,6 +1,6 @@
 """Decoder-only ranker over a ``ModelConfig``: dense attention stacks,
-pure Mamba2 stacks and stacks that mix the two kinds of layer (MoE MLPs and
-modality frontends are not ported and raise).
+pure Mamba2 stacks and stacks that mix the two kinds of layer, each with
+dense SwiGLU or MoE MLPs (modality frontends are not ported and raise).
 
 Parameters keep the JAX package's tree (``init_params`` there): per-layer
 params stacked as ``blocks["pos{p}"]`` with a leading repeat dim R =
@@ -29,6 +29,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import normal_init
 from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.norms import init_rmsnorm, rmsnorm
 
 NEG_INF = -1e30
@@ -55,10 +56,10 @@ def pattern_sig(cfg: ModelConfig):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.moe is not None or cfg.frontend != "none":
+    if cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: the port runs attention and SSM stacks with dense "
-            "or no MLPs; MoE and modality frontends are not ported")
+            f"{cfg.name}: the {cfg.frontend} frontend (prefix embeddings) "
+            "is not ported")
 
 
 # ----------------------------------------------------------------------
@@ -72,9 +73,12 @@ def _init_layer(gen, cfg: ModelConfig, kind: str, mlp_kind: str, dtype,
         p["attn"] = attn_mod.init_attention(gen, cfg, dtype, device)
     else:
         p["ssm"] = ssm_mod.init_ssm(gen, cfg, dtype, device)
-    if mlp_kind == "dense":
+    if mlp_kind != "none":
         p["norm2"] = init_rmsnorm(cfg.d_model, dtype, device)
+    if mlp_kind == "dense":
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    elif mlp_kind == "moe":
+        p["moe"] = init_moe(gen, cfg, dtype, device)
     return p
 
 
@@ -129,9 +133,10 @@ def _take(tree, r: int):
 def _layer(lp, x, positions, valid, cfg: ModelConfig, *, kind="attn",
            mlp_kind="dense", mode="forward", cache=None, prefix_valid=None,
            inplace=False, use_kernels=True):
-    """One block. Returns (x, cache_out): for "prefill" and "extend" the
-    layer's K/V (prefix + suffix) or its SSM tails and state, for "decode"
-    its updated cache, None for "forward"."""
+    """One block. Returns (x, cache_out, aux): cache_out is for "prefill"
+    and "extend" the layer's K/V (prefix + suffix) or its SSM tails and
+    state, for "decode" its updated cache, None for "forward"; aux is the
+    MoE load-balance loss (an f32 scalar), None without an MoE MLP."""
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
     if kind == "attn" and mode == "decode":
         mix, cache_out = attn_mod.attention_decode(
@@ -149,22 +154,30 @@ def _layer(lp, x, positions, valid, cfg: ModelConfig, *, kind="attn",
             lp["ssm"], h, cfg, cache=cache if mode == "extend" else None,
             valid=valid, use_kernel=use_kernels)
     x = x + mix
+    aux = None
     if mlp_kind == "dense":
         x = x + mlp(lp["mlp"], rmsnorm(lp["norm2"], x, cfg.norm_eps))
-    return x, (None if mode == "forward" else cache_out)
+    elif mlp_kind == "moe":
+        out, aux = moe_apply(lp["moe"], rmsnorm(lp["norm2"], x, cfg.norm_eps),
+                             cfg)
+        x = x + out
+    return x, (None if mode == "forward" else cache_out), aux
 
 
 def _run_stack(params, x, cfg: ModelConfig, *, mode, positions, valid=None,
                caches=None, prefix_valid=None, inplace=False,
                use_kernels=True, remat=False):
-    """The R x P blocks in order. Returns (x, caches_out) with caches_out
-    stacked over R like the JAX scan's output, or None for "forward".
+    """The R x P blocks in order. Returns (x, caches_out, aux) with
+    caches_out stacked over R like the JAX scan's output, or None for
+    "forward", and aux the MoE load-balance losses summed over the layers
+    in order (an f32 scalar, 0 without MoE), as the JAX scan carries it.
     With ``inplace`` (decode only) the ring writes, conv tails and states
     go into ``caches``' own tensors, which are returned. With ``remat``
     ("forward" only) each block's activations are recomputed in the
     backward pass instead of kept (``torch.utils.checkpoint``)."""
     pat = pattern_sig(cfg)
     outs = {f"pos{p}": [] for p in range(len(pat))}
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(cfg.n_layers // len(pat)):
         for p, (kind, mlp_kind) in enumerate(pat):
             key = f"pos{p}"
@@ -175,17 +188,19 @@ def _run_stack(params, x, cfg: ModelConfig, *, mode, positions, valid=None,
                 mode=mode, cache=cache, prefix_valid=prefix_valid,
                 inplace=inplace, use_kernels=use_kernels)
             if remat and mode == "forward" and torch.is_grad_enabled():
-                x, c_out = checkpoint(layer, x, use_reentrant=False)
+                x, c_out, aux = checkpoint(layer, x, use_reentrant=False)
             else:
-                x, c_out = layer(x)
+                x, c_out, aux = layer(x)
             outs[key].append(c_out)
+            if aux is not None:
+                aux_sum = aux_sum + aux
     if mode == "forward":
-        return x, None
+        return x, None, aux_sum
     # an attention cache without "valid" gets a new one, so no longer fits
     if inplace and all(kind == "ssm" or "valid" in caches[f"pos{p}"]
                        for p, (kind, _) in enumerate(pat)):
-        return x, caches
-    return x, {k: _stack(v) for k, v in outs.items()}
+        return x, caches, aux_sum
+    return x, {k: _stack(v) for k, v in outs.items()}, aux_sum
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -214,19 +229,29 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None, valid=None,
     and the plain SSD scan, the path autograd can differentiate (the
     kernels have no backward and raise under grad); ``remat`` recomputes
     each block in the backward pass."""
+    return _forward(params, cfg, tokens, positions=positions, valid=valid,
+                    last_only=last_only, use_kernels=use_kernels,
+                    remat=remat)[0]
+
+
+def _forward(params, cfg: ModelConfig, tokens, *, positions=None, valid=None,
+             last_only: bool = False, use_kernels: bool = True,
+             remat: bool = False):
+    """``forward``'s (logits, MoE aux loss): the JAX ``forward``'s pair,
+    which the training loss reads."""
     _check_supported(cfg)
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
     if valid is not None:
         valid = valid.to(torch.bool)    # the training batches' are int32
-    x, _ = _run_stack(params, _embed(params, tokens), cfg, mode="forward",
-                      positions=positions, valid=valid,
-                      use_kernels=use_kernels, remat=remat)
+    x, _, aux = _run_stack(params, _embed(params, tokens), cfg,
+                           mode="forward", positions=positions, valid=valid,
+                           use_kernels=use_kernels, remat=remat)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
-    return _logits(params, cfg, x)
+    return _logits(params, cfg, x), aux
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, positions=None, valid=None,
@@ -239,8 +264,9 @@ def prefill(params, cfg: ModelConfig, tokens, *, positions=None, valid=None,
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
-    x, caches = _run_stack(params, _embed(params, tokens), cfg,
-                           mode="prefill", positions=positions, valid=valid)
+    x, caches, _ = _run_stack(params, _embed(params, tokens), cfg,
+                              mode="prefill", positions=positions,
+                              valid=valid)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_last_only:
         x = x[:, -1:]
@@ -257,10 +283,10 @@ def extend(params, cfg: ModelConfig, caches, tokens, start_pos, *,
     _check_supported(cfg)
     positions = start_pos.to(torch.int32)[:, None] + torch.arange(
         tokens.shape[1], dtype=torch.int32, device=tokens.device)[None, :]
-    x, caches_out = _run_stack(params, _embed(params, tokens), cfg,
-                               mode="extend", positions=positions,
-                               valid=valid, caches=caches,
-                               prefix_valid=prefix_valid)
+    x, caches_out, _ = _run_stack(params, _embed(params, tokens), cfg,
+                                  mode="extend", positions=positions,
+                                  valid=valid, caches=caches,
+                                  prefix_valid=prefix_valid)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, cfg, x), caches_out
 
@@ -272,9 +298,9 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
     (logits (B,1,Vp), updated ring caches). The caller's caches are left
     as they were unless ``inplace``."""
     _check_supported(cfg)
-    x, caches_out = _run_stack(params, _embed(params, tokens), cfg,
-                               mode="decode", positions=pos, caches=caches,
-                               inplace=inplace)
+    x, caches_out, _ = _run_stack(params, _embed(params, tokens), cfg,
+                                  mode="decode", positions=pos,
+                                  caches=caches, inplace=inplace)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, cfg, x), caches_out
 

@@ -1,0 +1,113 @@
+"""Mixture-of-Experts MLP with sort-based capacity dispatch (the JAX
+package's ``models/moe.py`` on one device).
+
+Tokens are routed into fixed-capacity per-expert buffers through an argsort
+permutation, per batch row ("dropping" style: a token past its expert's
+capacity gets no output from that expert). Every buffer has a fixed size
+and no step reads a value back to the host, so the layer runs inside the
+engine's captured slate graph.
+
+The reference's semantics are kept exactly:
+
+- expert choice is a stable descending sort of the router probabilities
+  (``jax.lax.top_k`` puts the lower expert first on ties; ``torch.topk``
+  does not promise an order);
+- dispatch order is a stable argsort of the chosen experts, so the same
+  tokens are dropped;
+- dropped pairs are written to one overflow row past the buffers, which is
+  never read back: the combine gathers from the expert outputs with a zero
+  row appended;
+- the combine weights are ``top_p / max(sum, 1e-9)`` in f32, cast to the
+  activations' dtype before the sum over k; ``silu`` is taken in f32.
+
+The expert products are plain ``einsum``s, as in the reference. Expert
+parallelism and sharded expert weights come with the device mesh. Router
+jitter is left out: the reference adds it only when given a key, and no
+caller of its model passes one.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import scaled_init
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device
+             ) -> Dict[str, Any]:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    return {
+        "router": scaled_init(gen, (d, e), d, torch.float32, device),
+        "gate": scaled_init(gen, (e, d, f), d, dtype, device),
+        "up": scaled_init(gen, (e, d, f), d, dtype, device),
+        "down": scaled_init(gen, (e, f, d), f, dtype, device),
+    }
+
+
+def moe_capacity(seq: int, cfg: ModelConfig) -> int:
+    m = cfg.moe
+    return max(1, -(-int(seq * m.top_k * m.capacity_factor) // m.n_experts))
+
+
+def moe_apply(params, x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,S,d) -> (out (B,S,d), load-balance aux loss, an f32 scalar)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    e, k = m.n_experts, m.top_k
+    c = moe_capacity(s, cfg)
+
+    logits = torch.einsum("bsd,de->bse", x.float(), params["router"])
+    probs = torch.softmax(logits, dim=-1)  # (B,S,E)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[..., :k], top_e[..., :k]  # (B,S,K)
+    top_w = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+
+    # ---- sort-based dispatch, per batch row --------------------------
+    sk = s * k
+    e_flat = top_e.reshape(b, sk)
+    order = torch.argsort(e_flat, dim=-1, stable=True)
+    sorted_e = torch.gather(e_flat, 1, order)
+    # position within each expert's run of the sorted id list
+    idx = torch.arange(sk, device=x.device)[None, :].expand(b, sk)
+    is_start = torch.cat([torch.ones((b, 1), dtype=torch.bool,
+                                     device=x.device),
+                          sorted_e[:, 1:] != sorted_e[:, :-1]], dim=-1)
+    run_start = torch.cummax(torch.where(is_start, idx, 0), dim=1).values
+    pos_in_expert = idx - run_start
+    dest = torch.where(pos_in_expert >= c, e * c,
+                       sorted_e * c + pos_in_expert)  # overflow bin e*c
+
+    tok_idx = order // k  # (B, SK) source token of each sorted (token,k) pair
+    x_sorted = torch.gather(x, 1, tok_idx[..., None].expand(b, sk, d))
+    # the overflow row takes every dropped pair (an arbitrary one wins)
+    # and is never read back
+    buf = torch.zeros((b, e * c + 1, d), dtype=x.dtype, device=x.device)
+    buf.scatter_(1, dest[..., None].expand(b, sk, d), x_sorted)
+    expert_in = buf[:, :e * c].reshape(b, e, c, d)
+
+    # ---- per-expert SwiGLU -------------------------------------------
+    g = torch.einsum("becd,edf->becf", expert_in, params["gate"])
+    u = torch.einsum("becd,edf->becf", expert_in, params["up"])
+    h = F.silu(g.float()).to(x.dtype) * u
+    expert_out = torch.einsum("becf,efd->becd", h, params["down"])
+
+    # ---- gather back + combine ---------------------------------------
+    flat = torch.cat([expert_out.reshape(b, e * c, d),
+                      torch.zeros((b, 1, d), dtype=x.dtype, device=x.device)],
+                     dim=1)
+    y_sorted = torch.gather(flat, 1, dest[..., None].expand(b, sk, d))
+    y_flat = torch.zeros((b, sk, d), dtype=x.dtype, device=x.device)
+    y_flat.scatter_(1, order[..., None].expand(b, sk, d), y_sorted)
+    y = (y_flat.reshape(b, s, k, d) * top_w[..., None].to(x.dtype)).sum(2)
+
+    # ---- Switch-style load balance loss ------------------------------
+    experts = torch.arange(e, device=x.device)
+    assign = (top_e[..., :1] == experts).float()  # top-1 fraction
+    f_e = assign.mean(dim=(0, 1))
+    p_e = probs.mean(dim=(0, 1))
+    aux = e * torch.sum(f_e * p_e) * m.load_balance_coef
+    return y, aux

@@ -16,6 +16,9 @@ from repro_torch.serving.pool import (  # noqa: F401
     DeviceStatePool, PagedStateCache)
 from repro_torch.serving.loop import (  # noqa: F401
     InjectionServer, ServeResult)
+from repro_torch.serving.loadgen import (  # noqa: F401
+    SCENARIO_NAMES, ScenarioResult, ScenarioSpec, SLOContract, Trace,
+    evaluate_slo, get_scenario, make_trace, run_scenario)
 
 __all__ = [
     # request-level API (serving/api.py)
@@ -29,4 +32,7 @@ __all__ = [
     "DeviceStatePool", "PagedStateCache",
     # deprecated wave shim (serving/loop.py)
     "InjectionServer", "ServeResult",
+    # scenario harness (serving/loadgen.py)
+    "SCENARIO_NAMES", "SLOContract", "ScenarioSpec", "ScenarioResult",
+    "Trace", "evaluate_slo", "get_scenario", "make_trace", "run_scenario",
 ]

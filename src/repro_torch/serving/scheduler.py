@@ -170,9 +170,9 @@ class PrefillStateCache:
 
     @staticmethod
     def entry_nbytes(entry: Dict[str, Any]) -> int:
-        """Logical bytes of one cached state (all tensor leaves)."""
-        return sum(x.nbytes for x in _leaves(entry)
-                   if isinstance(x, torch.Tensor))
+        """Logical bytes of one cached state (every leaf with ``nbytes``:
+        tensors, and numpy arrays as the reference counts them)."""
+        return sum(x.nbytes for x in _leaves(entry) if hasattr(x, "nbytes"))
 
     def get(self, user: int, gen: int) -> Optional[Dict[str, Any]]:
         rec = self._entries.get((user, gen))

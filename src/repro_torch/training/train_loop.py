@@ -21,7 +21,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import flatten_with_keystr
 from repro_torch.models.common import tree_map as _map
-from repro_torch.models.model import forward
+from repro_torch.models.model import _forward
 from repro_torch.training.losses import cross_entropy
 from repro_torch.training.optimizer import AdamWConfig, OptState, adamw_update
 
@@ -39,14 +39,14 @@ def make_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Callable:
     """``loss_fn(params, batch) -> (loss, metrics)``; ``batch`` holds
     ``tokens``, ``labels`` and optionally ``valid`` and ``loss_mask``
     (B,S) tensors. The metrics are the mean loss, the accuracy and the MoE
-    auxiliary loss (0: the port has no MoE)."""
+    load-balance loss summed over the layers (0 without MoE), which the
+    returned loss includes."""
     def loss_fn(params, batch):
-        logits = forward(params, model_cfg, batch["tokens"],
-                         valid=batch.get("valid"), use_kernels=False,
-                         remat=train_cfg.remat)
+        logits, aux = _forward(params, model_cfg, batch["tokens"],
+                               valid=batch.get("valid"), use_kernels=False,
+                               remat=train_cfg.remat)
         loss, acc = cross_entropy(logits, batch["labels"],
                                   batch.get("loss_mask", batch.get("valid")))
-        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
         return loss + aux, {"loss": loss, "acc": acc, "moe_aux": aux}
     return loss_fn
 

@@ -424,11 +424,14 @@ def _tiny_cuda_engine(cuda, arch="tiny-test", dtype=torch.float32):
     from repro_torch.serving import ServingConfig, ServingEngine
 
     from conftest import N_ITEMS
-    cfg = (reduced(get_config("mamba2-780m")) if arch == "mamba2" else
-           ModelConfig(name="tiny-test", family="dense", n_layers=2,
-                       d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
-                       vocab_size=N_ITEMS + 256, rope_theta=1e4,
-                       tie_embeddings=True))
+    if arch in ("mamba2", "granite"):
+        cfg = reduced(get_config({"mamba2": "mamba2-780m",
+                                  "granite": "granite-moe-3b-a800m"}[arch]))
+    else:
+        cfg = ModelConfig(name="tiny-test", family="dense", n_layers=2,
+                          d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                          vocab_size=N_ITEMS + 256, rope_theta=1e4,
+                          tie_embeddings=True)
     params = init_params(cfg, torch.Generator().manual_seed(0), dtype, "cpu")
     return ServingEngine(cfg, params, ServingConfig(
         max_batch=4, prefill_len=32, inject_len=8, cache_capacity=64),
@@ -805,3 +808,68 @@ def test_ab_serve_kernel_vs_plain_fp32(cuda, mode):
         scores = torch.gather(p_last, 1, p_cand + 1).masked_fill(dup, -1e9)
         top = scores[differ].sort(1, descending=True).values[:, :11]
         assert ((top[:, :-1] - top[:, 1:]).min(1).values <= 1e-4).all()
+
+
+# ----------------------------------------------------------------------
+# the MoE layer and the scenario harness
+# ----------------------------------------------------------------------
+
+def test_moe_apply_cuda_matches_cpu(cuda):
+    """``moe_apply`` on the card against its CPU result at fp32, within
+    1e-5, on rows that overflow capacity (drops), with exact router ties
+    and at one token a row."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.moe import init_moe, moe_apply
+
+    cfg = reduced(get_config("granite-moe-3b-a800m"), d_model=64)
+    params = init_moe(torch.Generator().manual_seed(0), cfg, torch.float32,
+                      "cpu")
+    params["router"][:, 2] = params["router"][:, 1]
+    rng = np.random.RandomState(0)
+    for shape in ((3, 24, 64), (5, 1, 64)):
+        x = torch.from_numpy(np.abs(rng.randn(*shape)).astype(np.float32))
+        x[0, :3] = 0.0
+        y, aux = moe_apply(params, x, cfg)
+        gy, gaux = moe_apply({k: v.to(cuda) for k, v in params.items()},
+                             x.to(cuda), cfg)
+        np.testing.assert_allclose(gy.cpu().numpy(), y.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(gaux.cpu().numpy(), aux.numpy(),
+                                   atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_slate_graph_equals_loop(cuda, dtype):
+    """A reduced MoE stack's ``decode_slate`` graph (sort, stable argsort,
+    cummax and scatters captured) is bit for bit its eager loop."""
+    eng = _tiny_cuda_engine(cuda, "granite", dtype)
+    for seed in range(3):
+        st, first = _slate_state(eng, seed)
+        want = eng._decode_slate_loop(st, first, 5)
+        np.testing.assert_array_equal(eng.decode_slate(st, first, 5), want)
+    assert len(eng.slate_graph_stats()) == 1
+
+
+def test_scenario_cuda_counters_match_cpu(cuda):
+    """``run_scenario`` of churn_heavy (smoke) at the harness's own fp32
+    engine on the card and on the CPU: the same trace, every sim-time
+    metric, gate verdict and counter equal, and every gate passes on the
+    card (the CPU run's wall-clock gates are the host's business)."""
+    from repro_torch.serving import loadgen
+
+    spec = loadgen.get_scenario("churn_heavy", smoke=True)
+    (gpu,) = loadgen.run_scenario(spec, device=cuda)
+    (cpu,) = loadgen.run_scenario(spec, device="cpu")
+    wall = ("wall_ms_p99", "boundary_slice_max_ms")
+    assert gpu.trace_fingerprint == cpu.trace_fingerprint
+    assert {k: v for k, v in gpu.metrics.items() if k not in wall} == \
+        {k: v for k, v in cpu.metrics.items() if k not in wall}
+    assert gpu.slo_pass
+    assert all(g["pass"] for g in cpu.gates
+               if not g["gate"].startswith(("wall", "boundary")))
+    g, c = gpu.gateway_stats, cpu.gateway_stats
+    for d in (g, c):
+        d.pop("patch_install_max_ms")
+        for key in ("build_time_s", "build_slice_max_s"):
+            d["rollover"].pop(key)
+    assert g == c

@@ -102,6 +102,16 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_experiment(ab, model_cfg=cfg, log=None)
 
+    from repro_torch.serving.loadgen import (_engine_for, build_gateway,
+                                             get_scenario, run_scenario)
+    spec = get_scenario("churn_heavy", smoke=True)
+    for call in (lambda: _engine_for(spec, None),
+                 lambda: build_gateway(spec),
+                 lambda: run_scenario(spec, warmup=False)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert _engine_for(spec, None, "cpu").device.type == "cpu"
+
 
 def test_serve_launcher_runs_on_cpu_without_jax():
     """``python -m repro_torch.launch.serve`` runs the three-phase token

@@ -33,7 +33,7 @@ from repro.models.model import init_cache as jax_init_cache
 from repro.models.model import init_params as jax_init_params
 from repro.models.model import param_shapes as jax_param_shapes
 from repro.models.model import prefill as jax_prefill
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import MoEConfig, get_config, reduced
 from repro_torch.models import ssm
 from repro_torch.models.model import (Ranker, cache_from_prefill, decode_step,
                                       extend, forward, init_cache,
@@ -371,10 +371,18 @@ def test_init_cache_matches_jax(stack, request):
 
 
 def test_moe_and_frontends_raise(mamba):
+    """Modality frontends raise (they are not ported). An MoE config no
+    longer does: MoE stacks run (tests/test_torch_moe.py), and a pure
+    SSM stack has no MLP for the MoE sub-config to replace."""
     _, _, cfg, params = mamba
-    for bad in (dataclasses.replace(cfg, moe=object()),
-                dataclasses.replace(cfg, frontend="vision")):
+    for bad in (dataclasses.replace(cfg, frontend="vision"),
+                dataclasses.replace(cfg, frontend="audio")):
         with pytest.raises(NotImplementedError):
             init_params(bad, torch.Generator(), torch.float32, "meta")
         with pytest.raises(NotImplementedError):
             forward(params, bad, torch.zeros((1, 4), dtype=torch.int32))
+    with_moe = dataclasses.replace(cfg, moe=MoEConfig(n_experts=4, top_k=2))
+    assert with_moe.mlp_kinds() == ("none",) * cfg.n_layers
+    tokens = torch.ones((1, 4), dtype=torch.int32)
+    np.testing.assert_array_equal(forward(params, with_moe, tokens).numpy(),
+                                  forward(params, cfg, tokens).numpy())

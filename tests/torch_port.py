@@ -1,25 +1,25 @@
 """Helpers shared by the port's parity tests (``tests/test_torch_*.py``).
 
 ``port_cfg`` turns a JAX package ``ModelConfig`` into the port's, with its
-``SSMConfig`` converted too, so that the two packages' configs compare
-field by field. MoE configs are not ported: a JAX ``MoEConfig`` raises.
+``SSMConfig`` and ``MoEConfig`` converted too, so that the two packages'
+configs compare field by field.
 ``make_injector`` builds either package's feature plane (batch store,
 realtime service, injector) over the same seeded events, and
 ``port_engine`` the port's engine with a JAX engine's weights.
 """
 import dataclasses
 
-from repro_torch.configs import ModelConfig, SSMConfig
+from repro_torch.configs import ModelConfig, MoEConfig, SSMConfig
 
 
 def port_cfg(cfg) -> ModelConfig:
     """The port's ``ModelConfig`` equal to the JAX one ``cfg``."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE is not ported")
     fields = {f.name: getattr(cfg, f.name)
               for f in dataclasses.fields(ModelConfig)}
     if cfg.ssm is not None:
         fields["ssm"] = SSMConfig(**dataclasses.asdict(cfg.ssm))
+    if cfg.moe is not None:
+        fields["moe"] = MoEConfig(**dataclasses.asdict(cfg.moe))
     return ModelConfig(**fields)
 
 
