@@ -120,7 +120,28 @@
    wall-clock budgets were calibrated on the tiny models on a CPU host,
    so at full width they are printed with budget and actual, not
    asserted. Each replay prints its seconds, requests/s, ``wall_ms_p99``
-   by path group and its kernel launches.
+   by path group and its kernel launches;
+19. the modality-frontend archs at full width through the one-device step
+   layer (``launch/steps.py``), after freeing what the earlier phases
+   hold (``torch.cuda.mem_get_info()`` printed, the peak memory after
+   each step): (a) ``musicgen-large`` (48 layers, d 2048, bf16 from the
+   seed): ``prefill_32k`` at local batch 2 (64 audio prefix embeddings +
+   32704 tokens), ``decode_32k`` (a 32768-slot ring from that prefill,
+   8 greedy ``make_serve_step`` steps, run twice from the same prefill:
+   bit for bit the same tokens), ``long_500k`` (the 4096-position window
+   ``arch_for_shape`` substitutes, prefilled at positions 520192...524287,
+   8 steps from 524288), a bf16 prefill at S = 2048 with kernels against
+   ``use_kernels=False`` (last logits within 5% of the largest plain
+   logit, greedy tokens equal but where the plain top two are that
+   close), and ``train_4k``, 2 donating train steps at batch 1 x 4096
+   (64 prefix positions out of the loss; finite loss, params moved in
+   their own tensors); (b) ``llava-next-34b`` (60 layers, d 7168, 34.4 B
+   params, bf16) initialised on the card, one image request (2880 patch
+   embeddings + 2880 text tokens) prefilled, its ring built and 4 greedy
+   steps. Every run's inputs have the shapes and dtypes of the step
+   layer's example args; each kernel's layer-0 inputs, recorded from
+   those runs, are held against the plain versions (``flash_attention``
+   over every query row, in chunks) and timed beside SDPA and the bound.
 
 It needs a CUDA device: without one it exits non-zero and prints no result.
 The line before the last is the card's name and power limit; the last line
@@ -192,6 +213,23 @@ RECORD_COUNTERS = ("requests", "panes", "prefill_calls", "inject_calls",
                    "deadline_misses", "paths", "queue_delay")
 RECORD_ROLLOVER = ("rollovers", "rekeyed", "rebuilt", "build_steps",
                    "pending_build_users", "pending_rewarm")
+# the frontend archs: musicgen's local batch for prefill_32k and
+# decode_32k, greedy steps a decode run, train steps; the sequence of the
+# bf16 kernel-against-plain prefill and its tolerance (a share of the
+# largest plain logit); query rows a plain attention call in the checks;
+# llava's image request (2880 patches + 2880 text tokens) and its steps
+FRONTEND_KERNELS = ("flash_attention", "decode_attention")
+FRONTEND_PREFILL_BATCH, FRONTEND_MG_STEPS, FRONTEND_TRAIN_STEPS = 2, 8, 2
+FRONTEND_CHECK_SEQ, FRONTEND_BF16_REL_TOL = 2048, 0.05
+FRONTEND_ROW_CHUNK = 256
+# phase 19's kernel-against-plain limits, scaled to the plain output: at
+# long context a row's output is small (about sqrt(e/n) over n live keys,
+# 0.009 at 32768), so TOL's absolute limit alone would pass a zero output.
+# Per call (decode) or chunk of query rows (flash): max |got - want| at most
+# 2^-4 of max |want| (8 bf16 ulps of the largest value) and
+# ||got - want|| / ||want|| at most 1e-2; TOL still holds as well
+FRONTEND_REL_MAX_TOL, FRONTEND_REL_RMS_TOL = 2.0 ** -4, 1e-2
+LLAVA_SEQ, LLAVA_STEPS = 5760, 4
 
 
 def card() -> str:
@@ -2947,6 +2985,649 @@ def run_scenarios(dev, gpu):
     return launches
 
 
+# ----------------------------------------------------------------------
+# Phase 19: the frontend archs at full width through the step layer
+# ----------------------------------------------------------------------
+
+def phase_memory(label, dev):
+    """Prints the peak device memory since the last reset, then resets."""
+    import torch
+    torch.cuda.synchronize()
+    print(f"  memory after {label}: peak {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB allocated, "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB held now")
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def counted(fn, *args, **kwargs):
+    """``fn(*args)`` from a device synchronise to a device synchronise,
+    with the attention kernels' counters set to 0 just before it and read
+    just after: (result, launches, seconds)."""
+    import torch
+    ops = kernel_ops(FRONTEND_KERNELS)
+    torch.cuda.synchronize()
+    for op in ops.values():
+        op.launches = 0
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, {n: op.launches for n, op in ops.items()}, \
+        time.perf_counter() - t0
+
+
+def profile_call(fn, label, gpu, top=5):
+    """``fn()`` once under the profiler: its device-busy ms (the summed
+    kernel durations) against its host ms, and the kernels that take the
+    most device time. Returns ``fn()``'s result."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    per = sorted(((e.key, _device_us(e) / 1e3) for e in prof.key_averages()
+                  if _device_us(e) > 0), key=lambda kv: -kv[1])
+    busy = sum(v for _, v in per)
+    print(f"profile {label}: device busy {busy:.1f} ms of {host_ms:.1f} ms "
+          f"(host clock, under the profiler; idle share "
+          f"{1 - busy / host_ms:.3f}); by kernel: " + ", ".join(
+              f"{k[:48]} {v:.1f} ms" for k, v in per[:top]) + f" [{gpu}]")
+    return out
+
+
+def add_launches(total, launches):
+    for n, k in launches.items():
+        total[n] = total.get(n, 0) + k
+
+
+def check_like(real, meta, label):
+    """``real``'s leaves have the shapes and dtypes of the step layer's
+    example args ``meta`` (made on the meta device)."""
+    from repro_torch.models.common import flatten_with_keystr
+    got = [(p, tuple(t.shape), t.dtype) for p, t in flatten_with_keystr(real)]
+    want = [(p, tuple(t.shape), t.dtype) for p, t in flatten_with_keystr(meta)]
+    if got != want:
+        raise SystemExit(f"{label}: the inputs differ from the step layer's "
+                         f"example args: {got[:3]} against {want[:3]}")
+
+
+def flash_sdpa(args, window):
+    """One PyTorch call computing flash_attention's function on ``args``:
+    SDPA with ``is_causal`` where the mask is plain causal (every key valid,
+    query and key positions the same run of consecutive integers, no window
+    that cuts), else with the mask as a bias."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_mask
+    q, k, v, qpos, kpos, kvalid = args
+    sk = k.shape[1]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    gqa = {"enable_gqa": True} if q.shape[2] != k.shape[2] else {}
+    causal = bool(kvalid.all()) and torch.equal(qpos, kpos) \
+        and (window == 0 or window >= sk) \
+        and bool((qpos[:, 1:] - qpos[:, :-1] == 1).all())
+    if causal:
+        return (lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)), \
+            "is_causal"
+    bias = torch.where(attention_mask(qpos, kpos, kvalid, window), 0.0,
+                       NEG_INF).to(q.dtype)[:, None]
+    return (lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias, **gqa)), \
+        "bias"
+
+
+def scaled_errors(got, want):
+    """(max |got - want| / max |want|, ||got - want|| / ||want||)."""
+    d, w = got.float() - want.float(), want.float()
+    return float(d.abs().max() / w.abs().max()), float(d.norm() / w.norm())
+
+
+def within_scaled(got, want) -> bool:
+    rel_max, rel_rms = scaled_errors(got, want)
+    return rel_max <= FRONTEND_REL_MAX_TOL and rel_rms <= FRONTEND_REL_RMS_TOL
+
+
+def assert_scaled(got, want, kind, label):
+    """The kernel's ``got`` against the plain ``want``: TOL's absolute and
+    relative limit and the scaled ones; returns the scaled errors."""
+    import torch
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[kind],
+                               rtol=TOL[kind])
+    if not within_scaled(got, want):
+        rel_max, rel_rms = scaled_errors(got, want)
+        raise SystemExit(
+            f"{label}: max err {rel_max:.3g} of max |plain| (limit "
+            f"{FRONTEND_REL_MAX_TOL}), relative RMS err {rel_rms:.3g} "
+            f"(limit {FRONTEND_REL_RMS_TOL})")
+    return scaled_errors(got, want)
+
+
+def planted_controls(want, half, kind, label):
+    """The check must fail a zero output and ``half``, the plain version
+    with every other live key dropped; returns their readings, with
+    whether TOL's absolute limit alone would have passed each."""
+    import torch
+    readings = []
+    for name, bad in (("zeros", torch.zeros_like(want)),
+                      ("half the keys", half)):
+        if within_scaled(bad, want):
+            raise SystemExit(f"{label}: the check passes a planted wrong "
+                             f"output ({name})")
+        rel_max, rel_rms = scaled_errors(bad, want)
+        old = torch.allclose(bad.float(), want.float(), atol=TOL[kind],
+                             rtol=TOL[kind])
+        readings.append(f"{name} {rel_max:.3g}/{rel_rms:.3g} (TOL alone "
+                        f"{'passes' if old else 'fails'} it)")
+    return "planted controls failed, scaled max/RMS err: " + ", ".join(
+        readings)
+
+
+def check_flash_rows(prefix, args, window, label, report, gpu, iters=3):
+    """flash_attention at one of phase 19's recorded layer-0 calls: the
+    kernel's output against attention_ref over every query row, in chunks
+    of FRONTEND_ROW_CHUNK rows (each chunk is the reference's own rows: a
+    query row's output depends on its row alone) held to ``assert_scaled``,
+    with the chunks' device time summed as the plain version's time, and
+    the planted controls on the last chunk; then the kernel's and SDPA's
+    device times from a profiler trace and the bound of these inputs."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    q, k, v, qpos, kpos, kvalid = args
+    b, sq, nq, hd = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    kind = str(q.dtype).split(".")[1]
+    got = flash_attention(*args, window=window)
+    if not torch.isfinite(got).all():
+        raise SystemExit(f"flash_attention at the {label}: non-finite output")
+    err, rel_max, rel_rms, plain_ms = 0.0, 0.0, 0.0, 0.0
+    for i in range(0, sq, FRONTEND_ROW_CHUNK):
+        rows = slice(i, i + FRONTEND_ROW_CHUNK)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = attention_ref(q[:, rows], k, v, qpos[:, rows], kpos, kvalid,
+                             window=window)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms += start.elapsed_time(end)
+        err = max(err, float((got[:, rows].float() - want.float()).abs().max()))
+        rm, rr = assert_scaled(got[:, rows], want, kind,
+                               f"flash_attention at the {label}, query rows "
+                               f"{i}..{i + FRONTEND_ROW_CHUNK}")
+        rel_max, rel_rms = max(rel_max, rm), max(rel_rms, rr)
+        if i + FRONTEND_ROW_CHUNK >= sq:
+            every_other = (torch.arange(sk, device=kvalid.device) % 2 == 0)
+            half = attention_ref(q[:, rows], k, v, qpos[:, rows], kpos,
+                                 kvalid & every_other, window=window)
+            controls = planted_controls(want, half, kind,
+                                        f"flash_attention at the {label}")
+            del half
+        del want
+    del got
+    ms, _ = device_ms(lambda: flash_attention(*args, window=window), iters, 1)
+    sdpa, how = flash_sdpa(args, window)
+    library_ms, lib_kernels = device_ms(sdpa, iters, 1)
+    n_bytes, n_ops, live = attention_work(args, window)
+    bound_ms, bound_by = bound(n_bytes, n_ops, kind)
+    print(f"flash_attention {kind} at the {label} (B={b}, Sq={sq}, Sk={sk}, "
+          f"{nq}/{nkv} heads of {hd}, window {window}): max abs err {err:.3g} "
+          f"vs the plain version over all {sq} query rows (tolerance "
+          f"{TOL[kind]}), worst chunk's scaled max err {rel_max:.3g} (limit "
+          f"{FRONTEND_REL_MAX_TOL}) and relative RMS err {rel_rms:.3g} "
+          f"(limit {FRONTEND_REL_RMS_TOL}); last chunk's {controls}; kernel "
+          f"{ms:.3f} ms on the device, plain "
+          f"{plain_ms:.3f} ms (in chunks of {FRONTEND_ROW_CHUNK} query rows, "
+          f"CUDA events), sdpa ({how}) {library_ms:.3f} ms "
+          f"({', '.join(x[:40] for x in lib_kernels)}), kernel/sdpa "
+          f"{ms / library_ms:.2f}, bound {bound_ms:.3f} ms ({bound_by}; "
+          f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e12:.3f} TFLOP), kernel/bound "
+          f"{ms / bound_ms:.2f}; {b * nkv} CTAs on "
+          f"{torch.cuda.get_device_properties(q.device).multi_processor_count}"
+          f" SMs [{gpu}]")
+    report["flash_attention"].update({
+        f"{prefix}_{key}": val for key, val in dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+            rel_max_err=rel_max, rel_rms_err=rel_rms).items()})
+
+
+def check_decode_at(prefix, args, label, report, gpu):
+    """decode_attention at one of phase 19's recorded layer-0 calls: the
+    kernel against decode_attention_ref, held to ``assert_scaled``, with
+    the planted controls; then the kernel's, the plain version's and
+    SDPA's times and the bound (the live slots' K/V once, q and o once).
+    The three times are all by CUDA events over back-to-back calls: at
+    Sq = 1 the profiler's trace of SDPA has summed to less than the bytes'
+    bound (cuDNN's device time is not wholly in it), so it is printed
+    beside the kernel's trace time and not used."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, ring_live)
+    q, k, v, pos, stored = args
+    b, w, nkv, hd = k.shape
+    nq = q.shape[2]
+    kind = str(q.dtype).split(".")[1]
+    got = decode_attention(*args)
+    want = decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise SystemExit(f"decode_attention at the {label}: non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    rel_max, rel_rms = assert_scaled(got, want, kind,
+                                     f"decode_attention at the {label}")
+    every_other = torch.arange(w, device=stored.device) % 2 == 0
+    controls = planted_controls(
+        want, decode_attention_ref(q, k, v, pos, stored & every_other), kind,
+        f"decode_attention at the {label}")
+    del got, want
+    ms = time_ms(lambda: decode_attention(*args))
+    trace_ms, _ = device_ms(lambda: decode_attention(*args))
+    plain_ms = time_ms(lambda: decode_attention_ref(*args), 5, 1)
+    live = ring_live(pos, stored)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kw = {"enable_gqa": True} if nq != nkv else {}
+    if not bool(live.all()):
+        kw["attn_mask"] = live[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    library_ms = time_ms(sdpa)
+    sdpa_trace_ms, lib_kernels = device_ms(sdpa)
+    n_live = int(live.sum())
+    item = q.element_size()
+    bound_ms, bound_by = bound(
+        2 * q.numel() * item + 2 * n_live * nkv * hd * item + 4 * b + b * w,
+        4 * hd * n_live * nq, kind)
+    print(f"decode_attention {kind} at the {label} (B={b}, W={w}, nq={nq}, "
+          f"nkv={nkv}, hd={hd}, pos {pos.tolist()}, {n_live / b:.0f} live "
+          f"slots a row): max abs err {err:.3g} vs the plain version "
+          f"(tolerance {TOL[kind]}), scaled max err {rel_max:.3g} (limit "
+          f"{FRONTEND_REL_MAX_TOL}) and relative RMS err {rel_rms:.3g} "
+          f"(limit {FRONTEND_REL_RMS_TOL}); {controls}; by CUDA events a "
+          f"call: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"{library_ms:.4f} ms, kernel/sdpa {ms / library_ms:.2f}; in the "
+          f"profiler's trace: kernel {trace_ms:.4f} ms, sdpa "
+          f"{sdpa_trace_ms:.4f} ms ({', '.join(x[:40] for x in lib_kernels)}"
+          f"), kernel/sdpa {trace_ms / sdpa_trace_ms:.2f}; bound "
+          f"{bound_ms:.4f} ms ({bound_by}), kernel/bound "
+          f"{ms / bound_ms:.2f} [{gpu}]")
+    report["decode_attention"].update({
+        f"{prefix}_{key}": val for key, val in dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+            rel_max_err=rel_max, rel_rms_err=rel_rms,
+            trace_ms=trace_ms, library_trace_ms=sdpa_trace_ms).items()})
+
+
+def greedy_steps(serve, params, caches, tok, pos, n):
+    """``n`` greedy serve steps, each timed from a synchronise to a
+    synchronise; returns (tokens (B, n), ms per step, launches)."""
+    import torch
+    toks, ms = [], []
+    launches = {}
+    for _ in range(n):
+        (nxt, caches), step_launches, s = counted(serve, params, caches,
+                                                  tok, pos)
+        add_launches(launches, step_launches)
+        ms.append(s * 1e3)
+        toks.append(nxt)
+        tok, pos = nxt[:, None], pos + 1
+    out = torch.stack(toks, 1)
+    return out, ms, launches
+
+
+def check_tokens(toks, vocab, label):
+    if int(toks.min()) < 0 or int(toks.max()) >= vocab:
+        raise SystemExit(f"{label}: a greedy token is outside [0, {vocab})")
+
+
+def check_logits(logits, label):
+    import torch
+    if not torch.isfinite(logits).all():
+        raise SystemExit(f"{label}: non-finite logits")
+
+
+def run_musicgen(dev, gpu, report, total):
+    """Phase 19 (a): full-width musicgen-large through the step layer."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import get_shape
+    from repro_torch.launch.steps import (LONG_CONTEXT_WINDOW, arch_for_shape,
+                                          make_batch, make_step_and_inputs)
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.model import (cache_from_prefill, init_cache,
+                                          init_params, prefill)
+    from repro_torch.training.optimizer import init_opt_state
+
+    cfg = get_config("musicgen-large")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"musicgen-large: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B bf16 "
+          f"params made on the card in {time.perf_counter() - t0:.2f} s")
+    phase_memory("musicgen init", dev)
+
+    # ---- prefill_32k ------------------------------------------------
+    shape = get_shape("prefill_32k")
+    b = FRONTEND_PREFILL_BATCH
+    prefill_step, spec = make_step_and_inputs(cfg, shape, batch=b,
+                                              device="meta")
+    batch = make_batch(cfg, b, shape.seq_len, with_labels=False, device=dev,
+                       generator=gen)
+    check_like(batch, spec[1], "musicgen prefill_32k")
+    rec, flash_calls = record_calls(attn_mod, "flash_attention")
+    with rec:
+        (last, caches), launches, s = counted(prefill_step, params, batch)
+    add_launches(total, launches)
+    check_logits(last, "musicgen prefill_32k")
+    pfx = batch["prefix_embeds"].shape[1]
+    print(f"musicgen prefill_32k: batch {b} x {shape.seq_len} positions "
+          f"({pfx} audio prefix embeddings + {shape.seq_len - pfx} tokens) "
+          f"through prefill_step: {s * 1e3:.1f} ms (host clock, synchronised,"
+          f" the first call at this shape), launches {launches}; last logits "
+          f"{tuple(last.shape)} finite [{gpu}]")
+    if launches["flash_attention"] != cfg.n_layers:
+        raise SystemExit("musicgen prefill_32k: flash_attention launched "
+                         f"{launches['flash_attention']} times, not "
+                         f"{cfg.n_layers}")
+    phase_memory("musicgen prefill_32k", dev)
+    check_flash_rows("musicgen_prefill_32k", flash_calls[0][0],
+                     flash_calls[0][1].get("window", 0),
+                     "musicgen prefill_32k's layer 0", report, gpu)
+    del flash_calls, batch
+    torch.cuda.empty_cache()
+    phase_memory("the flash_attention check at 32k", dev)
+
+    # ---- decode_32k: ring of 32768 slots, 8 greedy steps, twice -----
+    dshape = get_shape("decode_32k")
+    serve, dspec = make_step_and_inputs(cfg, dshape, batch=b, device="meta")
+    ring = init_cache(cfg, b, dshape.seq_len, torch.bfloat16, dev)
+    t0 = time.perf_counter()
+    cache_from_prefill(cfg, caches, dshape.seq_len, out=ring)
+    torch.cuda.synchronize()
+    ring_ms = (time.perf_counter() - t0) * 1e3
+    check_like(ring, dspec[1], "musicgen decode_32k cache")
+    first = torch.argmax(last, -1).to(torch.int32)[:, None]
+    pos = torch.full((b,), shape.seq_len, dtype=torch.int32, device=dev)
+    rec, dec_calls = record_calls(attn_mod, "decode_attention")
+    with rec:
+        toks, step_ms, launches = greedy_steps(serve, params, ring, first,
+                                               pos, FRONTEND_MG_STEPS)
+    add_launches(total, launches)
+    check_tokens(toks, cfg.vocab_size, "musicgen decode_32k")
+    cache_from_prefill(cfg, caches, dshape.seq_len, out=ring)
+    again, _, _ = greedy_steps(serve, params, ring, first, pos,
+                               FRONTEND_MG_STEPS)
+    same = torch.equal(toks, again)
+    print(f"musicgen decode_32k: cache_from_prefill into a {dshape.seq_len}-"
+          f"slot ring {ring_ms:.1f} ms, then {FRONTEND_MG_STEPS} greedy "
+          f"serve_step calls from position {shape.seq_len}: "
+          f"{np.median(step_ms):.2f} ms a step (median; first "
+          f"{step_ms[0]:.2f} ms; host clock, synchronised), launches "
+          f"{launches}; tokens {toks.tolist()}; a second run from the same "
+          f"prefill gives the same tokens bit for bit: {same} [{gpu}]")
+    if not same:
+        raise SystemExit("musicgen decode_32k: two runs from the same "
+                         "prefill differ")
+    if launches["decode_attention"] != FRONTEND_MG_STEPS * cfg.n_layers:
+        raise SystemExit("musicgen decode_32k: decode_attention launched "
+                         f"{launches['decode_attention']} times")
+    profile_call(lambda: serve(params, ring, again[:, -1:],
+                               pos + FRONTEND_MG_STEPS),
+                 "musicgen decode_32k, one more step", gpu)
+    phase_memory("musicgen decode_32k", dev)
+    del ring, caches, last, toks, again
+    torch.cuda.empty_cache()
+    check_decode_at("musicgen_decode_32k", dec_calls[0][0],
+                    "musicgen decode_32k's layer 0, first step", report, gpu)
+    del dec_calls
+
+    # ---- long_500k: a 4096-slot sliding-window ring at 512k ---------
+    lshape = get_shape("long_500k")
+    wcfg = arch_for_shape(cfg, lshape)
+    w = LONG_CONTEXT_WINDOW
+    serve_l, lspec = make_step_and_inputs(cfg, lshape, batch=1,
+                                          device="meta")
+    start = lshape.seq_len - w
+    window_toks = torch.randint(1, cfg.vocab_size, (1, w), generator=gen,
+                                dtype=torch.int32, device=dev)
+    positions = torch.arange(start, lshape.seq_len, dtype=torch.int32,
+                             device=dev)
+    rec, wflash = record_calls(attn_mod, "flash_attention")
+    with rec:
+        (wlast, wcaches), launches, s = counted(
+            prefill, params, wcfg, window_toks, positions=positions,
+            logits_last_only=True)
+    add_launches(total, launches)
+    check_logits(wlast, "musicgen long_500k window prefill")
+    wring = init_cache(wcfg, 1, lshape.seq_len, torch.bfloat16, dev)
+    cache_from_prefill(wcfg, wcaches, lshape.seq_len, out=wring)
+    check_like(wring, lspec[1], "musicgen long_500k cache")
+    del wcaches
+    first = torch.argmax(wlast[:, 0], -1).to(torch.int32)[:, None]
+    lpos = torch.full((1,), lshape.seq_len, dtype=torch.int32, device=dev)
+    rec, ldec = record_calls(attn_mod, "decode_attention")
+    with rec:
+        ltoks, lstep_ms, llaunches = greedy_steps(
+            serve_l, params, wring, first, lpos, FRONTEND_MG_STEPS)
+    add_launches(total, llaunches)
+    check_tokens(ltoks, cfg.vocab_size, "musicgen long_500k")
+    print(f"musicgen long_500k (window {wcfg.sliding_window} by "
+          f"arch_for_shape): prefill of positions {start}..."
+          f"{lshape.seq_len - 1} {s * 1e3:.1f} ms, launches {launches}; "
+          f"{FRONTEND_MG_STEPS} greedy serve_step calls from position "
+          f"{lshape.seq_len} on the {w}-slot ring: {np.median(lstep_ms):.2f} "
+          f"ms a step (median; host clock, synchronised), launches "
+          f"{llaunches}; tokens {ltoks.tolist()} [{gpu}]")
+    profile_call(lambda: serve_l(params, wring, ltoks[:, -1:],
+                                 lpos + FRONTEND_MG_STEPS),
+                 "musicgen long_500k, one more step", gpu)
+    phase_memory("musicgen long_500k", dev)
+    del wring
+    check_flash_rows("musicgen_long_500k_prefill", wflash[0][0],
+                     wflash[0][1].get("window", 0),
+                     "musicgen long_500k window prefill's layer 0", report,
+                     gpu, iters=10)
+    check_decode_at("musicgen_long_500k", ldec[0][0],
+                    "musicgen long_500k's layer 0, first step", report, gpu)
+    del wflash, ldec
+
+    # ---- kernel path against plain path, bf16, S = 2048 -------------
+    cb = make_batch(cfg, b, FRONTEND_CHECK_SEQ, with_labels=False,
+                    device=dev, generator=gen)
+    kern, _ = prefill(params, cfg, cb["tokens"],
+                      prefix_embeds=cb["prefix_embeds"],
+                      logits_last_only=True)
+    plain, _ = prefill(params, cfg, cb["tokens"],
+                       prefix_embeds=cb["prefix_embeds"],
+                       logits_last_only=True, use_kernels=False)
+    kern, plain = kern[:, 0], plain[:, 0]
+    check_logits(kern, "musicgen S=2048 kernel path")
+    diff = float((kern - plain).abs().max())
+    tol = FRONTEND_BF16_REL_TOL * float(plain.abs().max())
+    kt, pt = kern.argmax(-1), plain.argmax(-1)
+    top2 = plain.topk(2, -1).values
+    gaps = (top2[:, 0] - top2[:, 1])[kt != pt]
+    print(f"musicgen bf16 prefill at S={FRONTEND_CHECK_SEQ} (batch {b}, "
+          f"{cb['prefix_embeds'].shape[1]} prefix positions), kernels "
+          f"against use_kernels=False: last logits max abs diff {diff:.4g} "
+          f"(tolerance {tol:.4g} = {FRONTEND_BF16_REL_TOL} x max |logit| "
+          f"{float(plain.abs().max()):.3g}); greedy tokens {kt.tolist()} vs "
+          f"{pt.tolist()}, {int((kt != pt).sum())} differ (top-2 gaps of "
+          f"those {gaps.tolist()})")
+    if diff > tol or bool((gaps > tol).any()):
+        raise SystemExit("musicgen bf16 prefill: the kernel path and the "
+                         "plain path differ beyond the tolerance")
+    del cb, kern, plain
+    phase_memory("the S=2048 kernel/plain prefill", dev)
+
+    # ---- train_4k: 2 donating steps at local batch 1 ----------------
+    tshape = get_shape("train_4k")
+    train_step, tspec = make_step_and_inputs(cfg, tshape, batch=1,
+                                             device="meta")
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = init_opt_state(params)
+    tbatch = make_batch(cfg, 1, tshape.seq_len, with_labels=True, device=dev,
+                        generator=gen)
+    check_like(tbatch, tspec[2], "musicgen train_4k batch")
+    check_like(opt.master, tspec[1].master, "musicgen train_4k optimizer")
+    watch = {"embed": params["embed"]["table"],
+             "wq": params["blocks"]["pos0"]["attn"]["wq"],
+             "down": params["blocks"]["pos0"]["mlp"]["down"]}
+    before = {k: t.clone() for k, t in watch.items()}
+    phase_memory("musicgen train set-up (params + f32 master, m, v)", dev)
+    losses = []
+    for i in range(FRONTEND_TRAIN_STEPS):
+        (params, opt, metrics), launches, s = counted(train_step, params,
+                                                      opt, tbatch)
+        m = {k: float(v) for k, v in metrics.items()}
+        losses.append(m["loss"])
+        print(f"musicgen train_4k step {i}: batch 1 x {tshape.seq_len} "
+              f"({int((~tbatch['loss_mask']).sum())} prefix positions out of "
+              f"the loss), donating: {s * 1e3:.1f} ms (host clock, "
+              f"synchronised), loss {m['loss']:.4f}, acc {m['acc']:.4f}, "
+              f"grad norm {m['grad_norm']:.4f}, lr {m['lr']:.3g}; peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB [{gpu}]")
+        if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
+            raise SystemExit("musicgen train_4k: a non-finite loss or grad "
+                             "norm")
+    params, opt, _ = profile_call(
+        lambda: train_step(params, opt, tbatch),
+        "musicgen train_4k, one more step", gpu)
+    moved = {k: float((watch[k].float() - before[k].float()).abs().max())
+             for k in watch}
+    same = all(watch[k] is t for k, t in (
+        ("embed", params["embed"]["table"]),
+        ("wq", params["blocks"]["pos0"]["attn"]["wq"])))
+    print(f"musicgen train_4k: largest change of the watched params {moved};"
+          f" updated in their own tensors: {same}")
+    if not all(v > 0 for v in moved.values()) or not same:
+        raise SystemExit("musicgen train_4k: the params did not move in "
+                         "place")
+    phase_memory("musicgen train_4k", dev)
+    del params, opt, tbatch, watch, before
+
+
+def run_llava(dev, gpu, report, total):
+    """Phase 19 (b): full-width llava-next-34b, one image request."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.steps import make_batch, make_step_and_inputs
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.frontend import frontend_prefix_len
+    from repro_torch.models.model import cache_from_prefill, init_cache, \
+        init_params
+
+    cfg = get_config("llava-next-34b")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    free, total_mem = torch.cuda.mem_get_info(dev)
+    print(f"llava-next-34b: {free / 1e9:.2f} GB free of "
+          f"{total_mem / 1e9:.2f} GB before init; needs "
+          f"{cfg.param_count() * 2 / 1e9:.2f} GB of bf16 params")
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"llava-next-34b: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B bf16 "
+          f"params made on the card in {time.perf_counter() - t0:.2f} s")
+    phase_memory("llava init", dev)
+    s = LLAVA_SEQ
+    pshape = InputShape("image_request", s, 1, "prefill")
+    prefill_step, spec = make_step_and_inputs(cfg, pshape, device="meta")
+    batch = make_batch(cfg, 1, s, with_labels=False, device=dev,
+                       generator=gen)
+    check_like(batch, spec[1], "llava prefill")
+    pfx = frontend_prefix_len(cfg, s)
+    rec, flash_calls = record_calls(attn_mod, "flash_attention")
+    with rec:
+        (last, caches), launches, sec = counted(prefill_step, params, batch)
+    add_launches(total, launches)
+    check_logits(last, "llava prefill")
+    print(f"llava-next-34b prefill: one image request, {pfx} patch "
+          f"embeddings + {s - pfx} text tokens = {s} positions, "
+          f"{sec * 1e3:.1f} ms (host clock, synchronised, the first call), "
+          f"launches {launches} [{gpu}]")
+    phase_memory("llava prefill", dev)
+    del caches
+    last, caches = profile_call(lambda: prefill_step(params, batch),
+                                "llava prefill, a second call", gpu)
+    cap = s + LLAVA_STEPS
+    dshape = InputShape("image_decode", cap, 1, "decode")
+    serve, dspec = make_step_and_inputs(cfg, dshape, device="meta")
+    ring = init_cache(cfg, 1, cap, torch.bfloat16, dev)
+    cache_from_prefill(cfg, caches, cap, out=ring)
+    check_like(ring, dspec[1], "llava decode cache")
+    del caches
+    first = torch.argmax(last, -1).to(torch.int32)[:, None]
+    pos = torch.full((1,), s, dtype=torch.int32, device=dev)
+    rec, dec_calls = record_calls(attn_mod, "decode_attention")
+    with rec:
+        toks, step_ms, dlaunches = greedy_steps(serve, params, ring, first,
+                                                pos, LLAVA_STEPS)
+    add_launches(total, dlaunches)
+    check_tokens(toks, cfg.vocab_size, "llava decode")
+    print(f"llava-next-34b decode: {LLAVA_STEPS} greedy serve_step calls "
+          f"on a {cap}-slot ring from position {s}: {np.median(step_ms):.2f} "
+          f"ms a step (median; first {step_ms[0]:.2f} ms; host clock, "
+          f"synchronised), launches {dlaunches}; tokens {toks.tolist()} "
+          f"[{gpu}]")
+    profile_call(lambda: serve(params, ring, toks[:, -1:],
+                               pos + LLAVA_STEPS),
+                 "llava decode, one more step", gpu)
+    phase_memory("llava decode", dev)
+    del ring
+    check_flash_rows("llava_prefill", flash_calls[0][0],
+                     flash_calls[0][1].get("window", 0),
+                     "llava prefill's layer 0", report, gpu)
+    check_decode_at("llava_decode", dec_calls[0][0],
+                    "llava decode's layer 0, first step", report, gpu)
+    del params, flash_calls, dec_calls
+
+
+def run_frontend_archs(dev, gpu, report):
+    """Phase 19: the two frontend archs at full width through the step
+    layer (``launch/steps.py``): (a) musicgen-large's prefill_32k,
+    decode_32k, long_500k and train_4k at local batches, (b) one
+    llava-next-34b image request prefilled and decoded. Returns the
+    kernels' launches in those runs."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total_mem = torch.cuda.mem_get_info(dev)
+    print(f"frontend phase: torch.cuda.mem_get_info() = ({free}, "
+          f"{total_mem}): {free / 1e9:.2f} GB free of {total_mem / 1e9:.2f} "
+          f"GB, {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated "
+          f"by this process")
+    torch.cuda.reset_peak_memory_stats(dev)
+    total = dict.fromkeys(FRONTEND_KERNELS, 0)
+    run_musicgen(dev, gpu, report, total)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_llava(dev, gpu, report, total)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"time frontend phase: {time.perf_counter() - t_phase:.1f} s "
+          f"(host clock); launches {total} [{gpu}]")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2982,12 +3663,14 @@ def main() -> int:
     del plat, params
     ab_launches = run_ab_experiment(dev, gpu, report)
     scenario_launches = run_scenarios(dev, gpu)
+    frontend_launches = run_frontend_archs(dev, gpu, report)
     missing = set(names) ^ set(report)
     if missing:
         raise SystemExit(f"kernels without a check: {sorted(missing)}")
     for name, n in (*token_launches.items(), *gateway_launches.items(),
                     *ssm_launches.items(), *ssm_gateway_launches.items(),
-                    *ab_launches.items(), *scenario_launches.items()):
+                    *ab_launches.items(), *scenario_launches.items(),
+                    *frontend_launches.items()):
         launches[name] = launches.get(name, 0) + n
     kernels = [dict(report[n], launches=launches[n]) for n in names]
     print(json.dumps({"kernels": kernels}))

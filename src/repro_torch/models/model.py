@@ -1,6 +1,8 @@
 """Decoder-only ranker over a ``ModelConfig``: dense attention stacks,
 pure Mamba2 stacks and stacks that mix the two kinds of layer, each with
-dense SwiGLU or MoE MLPs (modality frontends are not ported and raise).
+dense SwiGLU or MoE MLPs. The ``vision`` and ``audio`` archs take the
+embeddings of their frontend (``models/frontend.py``) as ``prefix_embeds``
+in front of the token embeddings.
 
 Parameters keep the JAX package's tree (``init_params`` there): per-layer
 params stacked as ``blocks["pos{p}"]`` with a leading repeat dim R =
@@ -13,7 +15,9 @@ positions hold ``{"k", "v"[, "valid"]}``, SSM positions ``{"conv_x",
 Entry points: ``forward`` (full-sequence logits), ``prefill`` (logits and
 the per-layer caches), ``extend`` (the injected suffix against a prefill
 cache), ``decode_step`` (one token against the decode caches), and the
-cache builders ``init_cache`` and ``cache_from_prefill``.
+cache builders ``init_cache``, ``cache_shapes`` and ``cache_from_prefill``.
+Stacked leaves are allocated once at their (R, ...) shape and filled a
+repeat at a time, so no layer is held twice.
 """
 from __future__ import annotations
 
@@ -55,13 +59,6 @@ def pattern_sig(cfg: ModelConfig):
     return sig[:p]
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend (prefix embeddings) "
-            "is not ported")
-
-
 # ----------------------------------------------------------------------
 # Init
 # ----------------------------------------------------------------------
@@ -82,21 +79,46 @@ def _init_layer(gen, cfg: ModelConfig, kind: str, mlp_kind: str, dtype,
     return p
 
 
-def _stack(trees):
-    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
-            else torch.stack([t[k] for t in trees]) for k, v in trees[0].items()}
+def _empty_stacked(tree, R: int):
+    """Uninitialised (R, ...) leaves of ``tree``'s dtypes and devices."""
+    return {k: _empty_stacked(v, R) if isinstance(v, dict)
+            else torch.empty((R,) + tuple(v.shape), dtype=v.dtype,
+                             device=v.device) for k, v in tree.items()}
+
+
+def _set_slice(stacked, r: int, tree) -> None:
+    """Copy ``tree``'s leaves into repeat ``r`` of ``stacked``."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _set_slice(stacked[k], r, v)
+        else:
+            stacked[k][r].copy_(v)
+
+
+def _stacked(make, R: int):
+    """The (R, ...) tree of ``make(0)``, ..., ``make(R - 1)``, called in
+    order, each copied into its slice and dropped: what ``torch.stack``
+    of the list would give, without holding the list."""
+    out = None
+    for r in range(R):
+        tree = make(r)
+        if out is None:
+            out = _empty_stacked(tree, R)
+        _set_slice(out, r, tree)
+    return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
     """Random params with the JAX ``init_params``' paths, shapes and scales.
-    The random bits are torch's, not ``jax.random``'s."""
-    _check_supported(cfg)
+    The random bits are torch's, not ``jax.random``'s: each repeat's layer
+    is drawn in turn (f32 draws, one leaf at a time) into its slice of the
+    stacked leaves, which are allocated once in ``dtype`` on ``device``."""
     pat = pattern_sig(cfg)
     R = cfg.n_layers // len(pat)
-    blocks = {f"pos{p}": _stack([_init_layer(generator, cfg, kind, mlp_kind,
-                                             dtype, device)
-                                 for _ in range(R)])
+    blocks = {f"pos{p}": _stacked(
+        lambda r, kind=kind, mlp_kind=mlp_kind: _init_layer(
+            generator, cfg, kind, mlp_kind, dtype, device), R)
               for p, (kind, mlp_kind) in enumerate(pat)}
     params = {
         "embed": {"table": normal_init(generator,
@@ -176,9 +198,14 @@ def _run_stack(params, x, cfg: ModelConfig, *, mode, positions, valid=None,
     ("forward" only) each block's activations are recomputed in the
     backward pass instead of kept (``torch.utils.checkpoint``)."""
     pat = pattern_sig(cfg)
-    outs = {f"pos{p}": [] for p in range(len(pat))}
+    R = cfg.n_layers // len(pat)
+    # an attention cache without "valid" gets a new one, so no longer fits
+    own = inplace and all(kind == "ssm" or "valid" in caches[f"pos{p}"]
+                          for p, (kind, _) in enumerate(pat))
+    # caches_out, allocated (R, ...) at each position's first output
+    outs = {} if mode != "forward" and not own else None
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-    for r in range(cfg.n_layers // len(pat)):
+    for r in range(R):
         for p, (kind, mlp_kind) in enumerate(pat):
             key = f"pos{p}"
             cache = None if caches is None else _take(caches[key], r)
@@ -191,16 +218,16 @@ def _run_stack(params, x, cfg: ModelConfig, *, mode, positions, valid=None,
                 x, c_out, aux = checkpoint(layer, x, use_reentrant=False)
             else:
                 x, c_out, aux = layer(x)
-            outs[key].append(c_out)
+            if outs is not None:
+                if key not in outs:
+                    outs[key] = _empty_stacked(c_out, R)
+                _set_slice(outs[key], r, c_out)
+            del c_out
             if aux is not None:
                 aux_sum = aux_sum + aux
     if mode == "forward":
         return x, None, aux_sum
-    # an attention cache without "valid" gets a new one, so no longer fits
-    if inplace and all(kind == "ssm" or "valid" in caches[f"pos{p}"]
-                       for p, (kind, _) in enumerate(pat)):
-        return x, caches, aux_sum
-    return x, {k: _stack(v) for k, v in outs.items()}, aux_sum
+    return x, (caches if own else outs), aux_sum
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -214,59 +241,71 @@ def _logits(params, cfg: ModelConfig, x):
     return logits
 
 
-def _embed(params, tokens):
-    return params["embed"]["table"][tokens.long()]
+def _embed(params, tokens, prefix_embeds=None):
+    """Token embeddings (B,S,d), after ``prefix_embeds`` (B,Sp,d) cast to
+    the table's dtype when given."""
+    x = params["embed"]["table"][tokens.long()]
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
-def forward(params, cfg: ModelConfig, tokens, *, positions=None, valid=None,
-            last_only: bool = False, use_kernels: bool = True,
-            remat: bool = False) -> torch.Tensor:
+def _default_positions(tokens, prefix_embeds):
+    """0..S-1 over the prefix and the tokens."""
+    s = tokens.shape[1] + (0 if prefix_embeds is None
+                           else prefix_embeds.shape[1])
+    return torch.arange(s, dtype=torch.int32, device=tokens.device)
+
+
+def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
+            positions=None, valid=None, last_only: bool = False,
+            use_kernels: bool = True, remat: bool = False) -> torch.Tensor:
     """Logits (B, S, Vp) fp32, or (B, 1, Vp) of the last position alone
     with ``last_only`` (same values: norm and head are per position).
 
-    tokens (B,S) int; positions (B,S) or (S,), default 0..S-1; valid (B,S)
-    key mask (left padding). ``use_kernels=False`` runs plain attention
-    and the plain SSD scan, the path autograd can differentiate (the
-    kernels have no backward and raise under grad); ``remat`` recomputes
-    each block in the backward pass."""
-    return _forward(params, cfg, tokens, positions=positions, valid=valid,
-                    last_only=last_only, use_kernels=use_kernels,
-                    remat=remat)[0]
+    tokens (B,St) int; prefix_embeds (B,Sp,d) frontend embeddings in front
+    of them, S = Sp + St; positions (B,S) or (S,), default 0..S-1; valid
+    (B,S) key mask (left padding). ``use_kernels=False`` runs plain
+    attention and the plain SSD scan, the path autograd can differentiate
+    (the kernels have no backward and raise under grad); ``remat``
+    recomputes each block in the backward pass."""
+    return _forward(params, cfg, tokens, prefix_embeds=prefix_embeds,
+                    positions=positions, valid=valid, last_only=last_only,
+                    use_kernels=use_kernels, remat=remat)[0]
 
 
-def _forward(params, cfg: ModelConfig, tokens, *, positions=None, valid=None,
-             last_only: bool = False, use_kernels: bool = True,
-             remat: bool = False):
+def _forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
+             positions=None, valid=None, last_only: bool = False,
+             use_kernels: bool = True, remat: bool = False):
     """``forward``'s (logits, MoE aux loss): the JAX ``forward``'s pair,
     which the training loss reads."""
-    _check_supported(cfg)
     if positions is None:
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=tokens.device)
+        positions = _default_positions(tokens, prefix_embeds)
     if valid is not None:
         valid = valid.to(torch.bool)    # the training batches' are int32
-    x, _, aux = _run_stack(params, _embed(params, tokens), cfg,
-                           mode="forward", positions=positions, valid=valid,
-                           use_kernels=use_kernels, remat=remat)
+    x, _, aux = _run_stack(params, _embed(params, tokens, prefix_embeds),
+                           cfg, mode="forward", positions=positions,
+                           valid=valid, use_kernels=use_kernels, remat=remat)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
     return _logits(params, cfg, x), aux
 
 
-def prefill(params, cfg: ModelConfig, tokens, *, positions=None, valid=None,
-            logits_last_only: bool = False):
+def prefill(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
+            positions=None, valid=None, logits_last_only: bool = False,
+            use_kernels: bool = True):
     """Full-sequence pass that also returns the per-layer caches. Returns
     (logits (B,S,Vp) fp32, or (B,1,Vp) with ``logits_last_only``; caches
     {"pos{p}": {"k", "v"}} each (R,B,S,nkv,hd) for attention, the SSM
-    tails and state for SSM positions)."""
-    _check_supported(cfg)
+    tails and state for SSM positions). ``prefix_embeds`` and the default
+    positions as in ``forward``; ``use_kernels=False`` runs the plain
+    attention and SSD scan."""
     if positions is None:
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=tokens.device)
-    x, caches, _ = _run_stack(params, _embed(params, tokens), cfg,
-                              mode="prefill", positions=positions,
-                              valid=valid)
+        positions = _default_positions(tokens, prefix_embeds)
+    x, caches, _ = _run_stack(params, _embed(params, tokens, prefix_embeds),
+                              cfg, mode="prefill", positions=positions,
+                              valid=valid, use_kernels=use_kernels)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_last_only:
         x = x[:, -1:]
@@ -280,7 +319,6 @@ def extend(params, cfg: ModelConfig, caches, tokens, start_pos, *,
     first suffix position; the prefix keys keep their slot indices as
     positions. Returns (logits over the suffix (B,Ss,Vp), caches covering
     prefix + suffix)."""
-    _check_supported(cfg)
     positions = start_pos.to(torch.int32)[:, None] + torch.arange(
         tokens.shape[1], dtype=torch.int32, device=tokens.device)[None, :]
     x, caches_out, _ = _run_stack(params, _embed(params, tokens), cfg,
@@ -297,7 +335,6 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
     tokens already in the cache (the new token's position). Returns
     (logits (B,1,Vp), updated ring caches). The caller's caches are left
     as they were unless ``inplace``."""
-    _check_supported(cfg)
     x, caches_out, _ = _run_stack(params, _embed(params, tokens), cfg,
                                   mode="decode", positions=pos,
                                   caches=caches, inplace=inplace)
@@ -319,7 +356,6 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                dtype=torch.bfloat16, device="cuda"):
     """An empty decode cache with the leading R dim: {"pos{p}": {"k", "v",
     "valid"}} ring caches for attention, zero tails and states for SSM."""
-    _check_supported(cfg)
     pat = pattern_sig(cfg)
     R = cfg.n_layers // len(pat)
     caches = {}
@@ -334,6 +370,13 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
     return caches
 
 
+def cache_shapes(cfg: ModelConfig, batch: int, capacity: int,
+                 dtype=torch.bfloat16):
+    """``init_cache``'s tree as meta tensors: its shapes and dtypes, with
+    nothing allocated."""
+    return init_cache(cfg, batch, capacity, dtype, "meta")
+
+
 def cache_from_prefill(cfg: ModelConfig, caches, capacity: int, valid=None,
                        out=None):
     """Prefill (or extend) caches -> decode caches: attention K/V become
@@ -345,21 +388,19 @@ def cache_from_prefill(cfg: ModelConfig, caches, capacity: int, valid=None,
     ``out``: decode caches of the same shapes to write into (the engine's
     graph-owned ring buffers), returned; the SSM leaves are then copied
     once, with no intermediate copy."""
-    _check_supported(cfg)
     cap = _capacity(cfg, capacity)
     fresh = {} if out is None else None
     for p, (kind, _) in enumerate(pattern_sig(cfg)):
         key = f"pos{p}"
         kv = caches[key]
         if kind == "attn":
-            rings = [attn_mod.cache_from_prefill(_take(kv, r), cap, valid)
-                     for r in range(kv["k"].shape[0])]
+            def ring(r, kv=kv):
+                return attn_mod.cache_from_prefill(_take(kv, r), cap, valid)
             if out is None:
-                fresh[key] = _stack(rings)
+                fresh[key] = _stacked(ring, kv["k"].shape[0])
             else:
-                for r, ring in enumerate(rings):
-                    for name, t in ring.items():
-                        out[key][name][r].copy_(t)
+                for r in range(kv["k"].shape[0]):
+                    _set_slice(out[key], r, ring(r))
         elif out is None:
             fresh[key] = {name: t.clone() for name, t in kv.items()}
         else:
@@ -382,18 +423,19 @@ class Ranker(nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any]):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         self.params = _as_module(params)
 
-    def forward(self, tokens, *, positions=None, valid=None,
-                last_only: bool = False) -> torch.Tensor:
-        return forward(self.params, self.cfg, tokens, positions=positions,
+    def forward(self, tokens, *, prefix_embeds=None, positions=None,
+                valid=None, last_only: bool = False) -> torch.Tensor:
+        return forward(self.params, self.cfg, tokens,
+                       prefix_embeds=prefix_embeds, positions=positions,
                        valid=valid, last_only=last_only)
 
-    def prefill(self, tokens, *, positions=None, valid=None,
-                logits_last_only: bool = False):
-        return prefill(self.params, self.cfg, tokens, positions=positions,
+    def prefill(self, tokens, *, prefix_embeds=None, positions=None,
+                valid=None, logits_last_only: bool = False):
+        return prefill(self.params, self.cfg, tokens,
+                       prefix_embeds=prefix_embeds, positions=positions,
                        valid=valid, logits_last_only=logits_last_only)
 
     def extend(self, caches, tokens, start_pos, *, valid=None,

@@ -9,7 +9,7 @@ from repro_torch.serving.api import (  # noqa: F401
     Event, GatewayStats, Request, RequestTelemetry, Response,
     RolloverStats, Ticket, as_event, assign_arms, hash_arm)
 from repro_torch.serving.engine import (  # noqa: F401
-    ServingConfig, ServingEngine)
+    ServingConfig, ServingEngine, make_serve_step)
 from repro_torch.serving.scheduler import (  # noqa: F401
     Gateway, PrefillStateCache, ServerConfig)
 from repro_torch.serving.pool import (  # noqa: F401
@@ -25,7 +25,7 @@ __all__ = [
     "Event", "Request", "Response", "RequestTelemetry", "Ticket",
     "GatewayStats", "RolloverStats", "as_event", "hash_arm", "assign_arms",
     # engine (serving/engine.py)
-    "ServingConfig", "ServingEngine",
+    "ServingConfig", "ServingEngine", "make_serve_step",
     # scheduler / facade (serving/scheduler.py)
     "Gateway", "ServerConfig", "PrefillStateCache",
     # device-resident state pool (serving/pool.py)

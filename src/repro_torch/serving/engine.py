@@ -500,3 +500,21 @@ class _SlateGraph:
             op.launches += n
         self.replays += 1
         return self.slate.cpu().numpy()
+
+
+# ----------------------------------------------------------------------
+# serve_step: ONE greedy token against a decode cache
+# ----------------------------------------------------------------------
+
+def make_serve_step(cfg: ModelConfig):
+    """The greedy one-token step that the decode shapes run
+    (``launch/steps.py``): ``serve_step(params, caches, tokens (B,1),
+    pos (B,)) -> (next_token (B,) int32, caches')``, the argmax of
+    ``decode_step``'s logits (the first index on ties, as ``jnp.argmax``).
+    The step owns ``caches``: it writes the new K/V and states into them
+    and returns them, as the JAX dry-run donates the cache to this step."""
+    def serve_step(params, caches, tokens, pos):
+        logits, caches = decode_step(params, cfg, caches, tokens, pos,
+                                     inplace=True)
+        return torch.argmax(logits[:, 0], dim=-1).to(torch.int32), caches
+    return serve_step

@@ -2,9 +2,12 @@
 cosine schedule: the JAX package's ``training/optimizer.py`` in PyTorch,
 its own update and not ``torch.optim``.
 
-Trees are the param tree's nested dicts. The update is functional: it
-returns new tensors and never writes into the ones it was given, so a
-tree handed out (a trainer's ``params``, a patch) stays as it was.
+Trees are the param tree's nested dicts. ``adamw_update_`` is the update:
+it writes into the master, moments and params' own tensors, for a caller
+that discards the old state (the JAX dry-run donates params and optimizer
+state to the train step). ``adamw_update`` is its functional form: the
+same update on copies, so a tree handed out (a trainer's ``params``, a
+patch) stays as it was.
 """
 from __future__ import annotations
 
@@ -104,35 +107,91 @@ def _put(tree, path, value):
     tree[path[-1]] = value
 
 
-def adamw_update(cfg: AdamWConfig, grads, opt: OptState,
-                 param_dtype=torch.bfloat16,
-                 ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
-    """Returns (new_params, new_opt_state, stats): one AdamW step on f32
-    grads, with the master cast to ``param_dtype`` as the new params."""
+def _step_scalars(cfg: AdamWConfig, grads, opt: OptState):
+    """(grad norm, clip factor, new step, lr, b1 and b2 corrections)."""
     gnorm = global_norm(grads)
     # a true division (torch's ``scalar / tensor`` multiplies by the
     # reciprocal, which rounds differently from XLA's divide)
     clip = torch.clamp_max(
         torch.full_like(gnorm, cfg.grad_clip) / (gnorm + 1e-9), 1.0)
     step = opt.step + 1
-    lr = lr_schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step.to(torch.float32)
     b2c = 1 - cfg.b2 ** step.to(torch.float32)
-    params, master, m_t, v_t = {}, {}, {}, {}
-    for path in _paths(grads):
-        g = _get(grads, path).to(torch.float32) * clip
-        p32 = _get(opt.master, path)
-        m = cfg.b1 * _get(opt.m, path) + (1 - cfg.b1) * g
-        v = cfg.b2 * _get(opt.v, path) + (1 - cfg.b2) * g * g
-        mhat = m / b1c
-        vhat = v / b2c
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if _is_matrix(path):
-            delta = delta + cfg.weight_decay * p32
-        new = p32 - lr * delta
-        _put(master, path, new)
-        _put(m_t, path, m)
-        _put(v_t, path, v)
-        _put(params, path, new.to(param_dtype))
-    return params, OptState(step, master, m_t, v_t), {
+    return gnorm, clip, step, lr_schedule(cfg, step), b1c, b2c
+
+
+# elements of one piece of a leaf in ``adamw_update_`` (256 MB in f32)
+_PIECE = 1 << 26
+
+
+def _pieces(t: torch.Tensor):
+    """Index slices of ``t`` along dim 0, each of at most ``_PIECE``
+    elements but never less than one row."""
+    if t.dim() == 0:
+        return [slice(None)]
+    per_row = max(t.numel() // max(t.shape[0], 1), 1)
+    rows = max(_PIECE // per_row, 1)
+    return [slice(i, i + rows) for i in range(0, t.shape[0], rows)]
+
+
+def _drop(tree, path) -> None:
+    for k in path[:-1]:
+        tree = tree[k]
+    del tree[path[-1]]
+
+
+def adamw_update_(cfg: AdamWConfig, grads, opt: OptState, params,
+                  param_dtype=torch.bfloat16,
+                  ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
+    """One AdamW step on ``grads``, written in place: the master, m and v
+    leaves of ``opt`` and the leaves of ``params`` are updated in their
+    own tensors and returned with a new step and the stats (a params leaf
+    not of ``param_dtype`` is replaced by a new one that is, the master
+    cast). ``grads`` may hold the backward's own (bf16) gradients: each
+    leaf is converted to f32 a piece at a time (a few rows of the leading
+    dim, as the ops are elementwise) and removed from ``grads`` once its
+    update is written, so no f32 copy of the whole gradient tree is
+    made."""
+    gnorm, clip, step, lr, b1c, b2c = _step_scalars(cfg, grads, opt)
+    for path in list(_paths(grads)):
+        grad, p = _get(grads, path), _get(params, path)
+        # a leaf of another dtype (an f32 SSM leaf among bf16 params) comes
+        # back as a new tensor of param_dtype
+        own = p.dtype == param_dtype
+        p32, m_t, v_t = (_get(t, path) for t in (opt.master, opt.m, opt.v))
+        for sl in _pieces(grad):
+            g = grad[sl].to(torch.float32) * clip
+            m = m_t[sl].mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            gg = (1 - cfg.b2) * g
+            v = v_t[sl].mul_(cfg.b2).add_(gg.mul_(g))
+            del g, gg
+            delta = m / b1c
+            denom = (v / b2c).sqrt_().add_(cfg.eps)
+            delta.div_(denom)
+            del denom
+            master = p32[sl]
+            if _is_matrix(path):
+                delta.add_(cfg.weight_decay * master)
+            master.sub_(delta.mul_(lr))
+            if own:
+                p[sl].copy_(master)
+        if not own:
+            _put(params, path, p32.to(param_dtype))
+        _drop(grads, path)
+        del grad
+    return params, OptState(step, opt.master, opt.m, opt.v), {
         "grad_norm": gnorm, "lr": lr}
+
+
+def adamw_update(cfg: AdamWConfig, grads, opt: OptState,
+                 param_dtype=torch.bfloat16,
+                 ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
+    """Returns (new_params, new_opt_state, stats): ``adamw_update_`` on
+    copies of the optimizer state and on new params of ``param_dtype``,
+    so ``grads`` and ``opt`` stay as they were."""
+    new = OptState(opt.step, *(_map(torch.clone, t)
+                               for t in (opt.master, opt.m, opt.v)))
+    params = _map(lambda g: torch.empty(g.shape, dtype=param_dtype,
+                                        device=g.device), grads)
+    return adamw_update_(cfg, _map(lambda g: g, grads), new, params,
+                         param_dtype)

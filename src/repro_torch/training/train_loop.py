@@ -8,7 +8,10 @@ no backward, and their wrappers raise when asked for gradients.
 ``remat`` recomputes each block in the backward pass
 (``torch.utils.checkpoint``), as ``jax.checkpoint`` does there. The JAX
 config's sharding fields and ``q_chunk`` mean nothing on one device and
-are left out.
+are left out. ``make_train_step(..., donate=True)`` updates the params
+and the optimizer state in their own tensors (``adamw_update_``), as the
+JAX dry-run donates them to its train step; the step layer
+(``launch/steps.py``) and ``launch/train.py`` train that way.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ from repro_torch.models.common import flatten_with_keystr
 from repro_torch.models.common import tree_map as _map
 from repro_torch.models.model import _forward
 from repro_torch.training.losses import cross_entropy
-from repro_torch.training.optimizer import AdamWConfig, OptState, adamw_update
+from repro_torch.training.optimizer import (AdamWConfig, OptState,
+                                           adamw_update, adamw_update_)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,12 +41,15 @@ class TrainConfig:
 
 def make_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Callable:
     """``loss_fn(params, batch) -> (loss, metrics)``; ``batch`` holds
-    ``tokens``, ``labels`` and optionally ``valid`` and ``loss_mask``
-    (B,S) tensors. The metrics are the mean loss, the accuracy and the MoE
-    load-balance loss summed over the layers (0 without MoE), which the
-    returned loss includes."""
+    ``tokens`` (B,St), ``labels`` (B,S) and optionally ``prefix_embeds``
+    (B,Sp,d) in front of the tokens (S = Sp + St) and ``valid`` and
+    ``loss_mask`` (B,S) tensors; a frontend batch's ``loss_mask`` is
+    False on the prefix positions. The metrics are the mean loss, the
+    accuracy and the MoE load-balance loss summed over the layers (0
+    without MoE), which the returned loss includes."""
     def loss_fn(params, batch):
         logits, aux = _forward(params, model_cfg, batch["tokens"],
+                               prefix_embeds=batch.get("prefix_embeds"),
                                valid=batch.get("valid"), use_kernels=False,
                                remat=train_cfg.remat)
         loss, acc = cross_entropy(logits, batch["labels"],
@@ -60,13 +67,21 @@ def _to_device(batch, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig
-                    ) -> Callable:
+def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
+                    donate: bool = False) -> Callable:
     """``train_step(params, opt, batch) -> (params, opt, metrics)``. The
     batch (numpy arrays or tensors) moves to the params' device; with
     ``microbatches`` > 1 it is split along the batch axis and the f32
     gradients are summed over the pieces and divided by their count, as
-    the JAX step's scan does."""
+    the JAX step's scan does.
+
+    ``donate``: the step owns ``params`` and ``opt``. It writes the update
+    into their tensors and returns them (with a new step count), and the
+    caller must not use the old ``params``/``opt`` as they were; without
+    it the update goes to copies (``adamw_update``). Either way, with one
+    microbatch no f32 copy of the whole gradient tree is made: each
+    leaf's gradient is converted a piece at a time and dropped once its
+    update is written."""
     loss_fn = make_loss_fn(model_cfg, train_cfg)
 
     def grad_fn(params, batch):
@@ -84,7 +99,6 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig
         nm = train_cfg.microbatches
         if nm == 1:
             grads, metrics = grad_fn(params, batch)
-            grads = _map(lambda g: g.to(torch.float32), grads)
         else:
             micro = [{k: v.reshape((nm, v.shape[0] // nm) + v.shape[1:])[i]
                       for k, v in batch.items()} for i in range(nm)]
@@ -94,12 +108,17 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig
                        for k in ("loss", "acc", "moe_aux")}
             for mb in micro:
                 g, m = grad_fn(params, mb)
-                grads = _map(lambda a, b: a + b.to(torch.float32), grads, g)
+                _map(lambda a, b: a.add_(b.to(torch.float32)), grads, g)
+                del g
                 metrics = {k: metrics[k] + m[k] for k in metrics}
-            grads = _map(lambda g: g / nm, grads)
+            _map(lambda g: g.div_(nm), grads)
             metrics = {k: v / nm for k, v in metrics.items()}
-        params, opt, stats = adamw_update(train_cfg.adamw, grads, opt,
-                                          train_cfg.param_dtype)
+        if donate:
+            params, opt, stats = adamw_update_(train_cfg.adamw, grads, opt,
+                                               params, train_cfg.param_dtype)
+        else:
+            params, opt, stats = adamw_update(train_cfg.adamw, grads, opt,
+                                              train_cfg.param_dtype)
         return params, opt, {**metrics, **stats}
 
     return train_step
@@ -107,10 +126,12 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig
 
 def train(model_cfg: ModelConfig, train_cfg: TrainConfig, params,
           opt: OptState, batches, *, log_every: int = 20,
-          log: Optional[Callable[[str], None]] = print) -> Dict[str, Any]:
+          log: Optional[Callable[[str], None]] = print,
+          donate: bool = False) -> Dict[str, Any]:
     """Simple host loop over an iterable of batches. Returns the final
-    params, optimizer state and per-step metrics."""
-    step_fn = make_train_step(model_cfg, train_cfg)
+    params, optimizer state and per-step metrics. ``donate``: the steps
+    update ``params`` and ``opt`` in their own tensors."""
+    step_fn = make_train_step(model_cfg, train_cfg, donate=donate)
     history = []
     for i, batch in enumerate(batches):
         params, opt, metrics = step_fn(params, opt, batch)

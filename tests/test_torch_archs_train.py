@@ -1,7 +1,9 @@
 """One train step of every assigned architecture at reduced size, the
 port's ``make_train_step`` against the JAX one (``tests/test_torch_archs.py``
 holds the configs, the forward pass and the serve step; the two files
-share its set-up)."""
+share its set-up). A frontend arch's batch puts the same numpy prefix
+embeddings in front of the tokens, with labels over prefix + tokens and
+``loss_mask`` False on the prefix positions."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +14,7 @@ from repro.training import optimizer as jax_opt
 from repro.training import train_loop as jax_train
 from repro_torch.configs.archs import ASSIGNED
 from repro_torch.training import optimizer, train_loop
-from test_torch_archs import TOL, _frontend_raises, _setup, _tokens
+from test_torch_archs import PREFIX, TOL, _prefix, _setup, _tokens
 
 
 @pytest.mark.parametrize("arch", ASSIGNED)
@@ -21,11 +23,17 @@ def test_reduced_train_step_matches_jax(arch):
     MoE aux, then every updated param (AdamW eps 1e-3, as
     tests/test_torch_training.py says why)."""
     jcfg, jparams, cfg, params = _setup(arch)
-    if params is None:
-        _frontend_raises(cfg)
-        return
     toks = _tokens(cfg, 2)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    pfx = _prefix(cfg, 17)
+    if pfx is not None:
+        b = toks.shape[0]
+        batch["prefix_embeds"] = pfx
+        batch["labels"] = np.concatenate(
+            [np.zeros((b, PREFIX), np.int32), toks[:, 1:]], axis=1)
+        mask = np.ones(batch["labels"].shape, bool)
+        mask[:, :PREFIX] = False
+        batch["loss_mask"] = mask
     kw = dict(lr=1e-3, warmup_steps=0, total_steps=10, eps=1e-3)
     jstep = jax.jit(jax_train.make_train_step(jcfg, jax_train.TrainConfig(
         adamw=jax_opt.AdamWConfig(**kw), remat=True,

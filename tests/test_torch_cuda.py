@@ -16,7 +16,10 @@ order; bf16 rounds y once), its f32 final state within 1e-4, and a row
 that is all padding (dt = 0) must keep its incoming state bit for bit.
 The paged state pool's gather and scatter must copy every leaf bit for
 bit on the card, and a pooled Gateway there must serve what a host-LRU
-one does, bit for bit.
+one does, bit for bit. The reduced frontend archs with prefix embeddings
+and the step layer's three kinds must give on the card what they give on
+the CPU (within 1e-4 at fp32), and the donating train step must be bit
+for bit the functional one there too.
 """
 import numpy as np
 import pytest
@@ -873,3 +876,129 @@ def test_scenario_cuda_counters_match_cpu(cuda):
         for key in ("build_time_s", "build_slice_max_s"):
             d["rollover"].pop(key)
     assert g == c
+
+
+# ----------------------------------------------------------------------
+# the frontend archs and the one-device step layer
+# ----------------------------------------------------------------------
+
+def _frontend_model(arch, dev):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.model import init_params
+
+    cfg = reduced(get_config(arch), d_model=64)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    return cfg, params, {k: _to(v, dev) for k, v in params.items()}
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to(v, dev) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "llava-next-34b"])
+def test_frontend_prefill_decode_cuda_matches_cpu(cuda, arch):
+    """A reduced frontend arch at fp32 with 4 prefix embeddings: prefill
+    through ``flash_attention`` and two decode steps through
+    ``decode_attention`` on the card, against the plain versions on the
+    CPU (logits within 1e-4, equal greedy tokens), each kernel launched
+    once a layer."""
+    from repro_torch.models.model import (cache_from_prefill, decode_step,
+                                          prefill)
+
+    cfg, params, gparams = _frontend_model(arch, cuda)
+    rng = np.random.RandomState(1)
+    toks = torch.from_numpy(rng.randint(1, cfg.vocab_size, (2, 20)).astype(
+        np.int32))
+    pfx = torch.from_numpy((rng.standard_normal((2, 4, cfg.d_model))
+                            * 0.02).astype(np.float32))
+    f0, d0 = flash_attention.launches, decode_attention.launches
+    log, c = prefill(params, cfg, toks, prefix_embeds=pfx)
+    glog, gc = prefill(gparams, cfg, toks.to(cuda),
+                       prefix_embeds=pfx.to(cuda))
+    assert flash_attention.launches == f0 + cfg.n_layers
+    np.testing.assert_allclose(glog.cpu().numpy(), log.numpy(), atol=1e-4,
+                               rtol=1e-4)
+    dc, gdc = cache_from_prefill(cfg, c, 32), cache_from_prefill(cfg, gc, 32)
+    tok = torch.argmax(log[:, -1], -1).to(torch.int32)[:, None]
+    for i in range(2):
+        pos = torch.full((2,), 24 + i, dtype=torch.int32)
+        lg, dc = decode_step(params, cfg, dc, tok, pos)
+        glg, gdc = decode_step(gparams, cfg, gdc, tok.to(cuda), pos.to(cuda))
+        np.testing.assert_allclose(glg.cpu().numpy(), lg.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+        tok = torch.argmax(lg[:, 0], -1).to(torch.int32)[:, None]
+        assert torch.equal(torch.argmax(glg[:, 0], -1).cpu().to(torch.int32),
+                           tok[:, 0])
+    assert decode_attention.launches == d0 + 2 * cfg.n_layers
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_step_layer_cuda_matches_cpu(cuda, kind):
+    """``make_step_and_inputs``' three kinds on reduced ``musicgen-large``
+    at seq 32, batch 2, in fp32: the example args drawn on the card, run
+    there, and the same args run on the CPU (train: metrics and the new
+    master within 1e-4; prefill: last logits; decode: tokens)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.steps import make_step_and_inputs
+
+    cfg = reduced(get_config("musicgen-large"), d_model=64)
+    shape = InputShape(f"tiny_{kind}", 32, 2, kind)
+    step, args = make_step_and_inputs(
+        cfg, shape, device=cuda, dtype=torch.float32,
+        generator=torch.Generator(device=cuda).manual_seed(0))
+    cpu_step, _ = make_step_and_inputs(cfg, shape, device="meta",
+                                       dtype=torch.float32)
+    want = cpu_step(*_to(args, "cpu"))
+    got = step(*args)
+    if kind == "train":
+        for k in ("loss", "acc", "grad_norm"):
+            np.testing.assert_allclose(got[2][k].cpu().numpy(),
+                                       want[2][k].numpy(), atol=1e-4,
+                                       rtol=1e-4)
+        np.testing.assert_allclose(
+            got[1].master["embed"]["table"].cpu().numpy(),
+            want[1].master["embed"]["table"].numpy(), atol=1e-4, rtol=1e-4)
+    elif kind == "prefill":
+        np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                                   atol=1e-4, rtol=1e-4)
+    else:
+        assert torch.equal(got[0].cpu(), want[0])
+
+
+def test_donating_train_step_cuda_equals_functional(cuda):
+    """One donating train step on the card, bf16 params, bit for bit the
+    functional step on the same inputs."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.common import flatten_with_keystr, tree_map
+    from repro_torch.models.model import init_params
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+
+    cfg = reduced(get_config("musicgen-large"), d_model=64)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         torch.bfloat16, cuda)
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=1e-2, warmup_steps=1),
+                       remat=True, param_dtype=torch.bfloat16)
+    rng = np.random.RandomState(0)
+    toks = rng.randint(1, cfg.vocab_size, (2, 33)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    fp, fo, fm = make_train_step(cfg, tcfg)(params, init_opt_state(params),
+                                            batch)
+    dparams = tree_map(lambda t: t.clone(), params)
+    dp, do, dm = make_train_step(cfg, tcfg, donate=True)(
+        dparams, init_opt_state(dparams), batch)
+    for k in fm:
+        assert torch.equal(fm[k], dm[k]), k
+    for a, b in ((fp, dp), (fo.master, do.master), (fo.m, do.m),
+                 (fo.v, do.v)):
+        for (path, x), (_, y) in zip(flatten_with_keystr(a),
+                                     flatten_with_keystr(b)):
+            assert torch.equal(x, y), path

@@ -371,16 +371,31 @@ def test_init_cache_matches_jax(stack, request):
 
 
 def test_moe_and_frontends_raise(mamba):
-    """Modality frontends raise (they are not ported). An MoE config no
-    longer does: MoE stacks run (tests/test_torch_moe.py), and a pure
-    SSM stack has no MLP for the MoE sub-config to replace."""
-    _, _, cfg, params = mamba
-    for bad in (dataclasses.replace(cfg, frontend="vision"),
-                dataclasses.replace(cfg, frontend="audio")):
-        with pytest.raises(NotImplementedError):
-            init_params(bad, torch.Generator(), torch.float32, "meta")
-        with pytest.raises(NotImplementedError):
-            forward(params, bad, torch.zeros((1, 4), dtype=torch.int32))
+    """A ``vision`` or ``audio`` config runs the SSM stack after its
+    frontend's prefix embeddings, as the JAX package does (forward and
+    prefill logits within 1e-5, the same numpy embeddings on both sides).
+    An MoE config does not raise: MoE stacks run (tests/test_torch_moe.py),
+    and a pure SSM stack has no MLP for the MoE sub-config to replace."""
+    jcfg, jparams, cfg, params = mamba
+    rng = np.random.RandomState(5)
+    toks = rng.randint(1, cfg.vocab_size, (2, 12)).astype(np.int32)
+    pfx = (rng.standard_normal((2, 4, cfg.d_model)) * 0.02).astype(np.float32)
+    for frontend in ("vision", "audio"):
+        jfront = dataclasses.replace(jcfg, frontend=frontend)
+        front = dataclasses.replace(cfg, frontend=frontend)
+        assert init_params(front, torch.Generator(), torch.float32,
+                           "meta")["embed"]["table"].is_meta
+        want, _ = jax_forward(jparams, jfront, jnp.asarray(toks),
+                              prefix_embeds=jnp.asarray(pfx))
+        got = forward(params, front, _t(toks), prefix_embeds=_t(pfx))
+        assert got.shape == (2, 16, cfg.vocab_padded)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        wlast, _ = jax_prefill(jparams, jfront, jnp.asarray(toks),
+                               prefix_embeds=jnp.asarray(pfx),
+                               logits_last_only=True)
+        last, _ = prefill(params, front, _t(toks), prefix_embeds=_t(pfx),
+                          logits_last_only=True)
+        np.testing.assert_allclose(last.numpy(), np.asarray(wlast), **TOL)
     with_moe = dataclasses.replace(cfg, moe=MoEConfig(n_experts=4, top_k=2))
     assert with_moe.mlp_kinds() == ("none",) * cfg.n_layers
     tokens = torch.ones((1, 4), dtype=torch.int32)
