@@ -141,7 +141,21 @@
    steps. Every run's inputs have the shapes and dtypes of the step
    layer's example args; each kernel's layer-0 inputs, recorded from
    those runs, are held against the plain versions (``flash_attention``
-   over every query row, in chunks) and timed beside SDPA and the bound.
+   over every query row, in chunks) and timed beside SDPA and the bound;
+20. the device mesh: (a) right after phase 8, the itfi Gateway at full
+   width (panes of 256, bf16, 512 users a wave) on a 1x1 NCCL mesh in
+   this process, from the host LRU and then the pool, against the
+   mesh-free Gateway: every response bit for bit and every counter
+   equal; (b) last, with four cards (``torch.cuda.device_count()``), one
+   process a card: the itfi Gateway in fp32 and bf16 on 1x1, 4x1 and 2x2
+   meshes (fp32 scores within 1e-4 of 1x1's, a slate may differ only on a
+   row whose picks tie within 1e-4; bf16 timed by phase and by
+   collective), then ``jamba-v0.1-52b`` at full width on 1x4 (sharded
+   bf16 init from the seed, panes of 64 through prefill, inject and
+   ``decode_slate``, timed by phase with the peak memory of each rank,
+   and rank 0's layer inputs of the three kernels held against the plain
+   versions). With one card (b) prints one line saying it did not run.
+   ``--mesh-only`` runs phase 20 alone, and no result line.
 
 It needs a CUDA device: without one it exits non-zero and prints no result.
 The line before the last is the card's name and power limit; the last line
@@ -230,6 +244,18 @@ FRONTEND_ROW_CHUNK = 256
 # ||got - want|| / ||want|| at most 1e-2; TOL still holds as well
 FRONTEND_REL_MAX_TOL, FRONTEND_REL_RMS_TOL = 2.0 ** -4, 1e-2
 LLAVA_SEQ, LLAVA_STEPS = 5760, 4
+# phase 20, the mesh: users a wave of its itfi Gateways, their backends
+# and kernels; the multi-card meshes held against 1x1; jamba's mesh, its
+# pane of 64 rows (its weights are 25.8 GB a rank at 1x4, its f32 SSM
+# state 28 layers x 32 local heads x 64 x 128 x 4 B = 29 MB a row), the
+# timed panes and its kernels
+MESH_USERS = 512
+MESH_BACKENDS = ("host LRU", "pool")
+MESH_KERNELS = ("flash_attention", "decode_attention")
+MESH_SHAPES = ((4, 1), (2, 2))
+JAMBA_ARCH, JAMBA_MESH, JAMBA_BATCH = "jamba-v0.1-52b", (1, 4), 64
+JAMBA_PANES = 2
+JAMBA_KERNELS = ("flash_attention", "decode_attention", "ssd_scan")
 
 
 def card() -> str:
@@ -534,11 +560,21 @@ def time_flash_at(prefix, args, kwargs, label, report, gpu):
 # ----------------------------------------------------------------------
 
 def build_platform(dev, params, cfg):
+    from repro_torch.core import PipelineConfig, RecommenderPlatform
+
+    inj, pop, rng = build_feature_plane(dev, cfg)
+    plat = RecommenderPlatform(
+        PipelineConfig(n_items=cfg.vocab_size - 256, serve_batch=SERVE_BATCH),
+        cfg, params, inj, pop, device=dev)
+    return plat, rng
+
+
+def build_feature_plane(dev, cfg):
+    """The feature plane's injector over N_USERS users and N_EVENTS events
+    from SEED, the items' popularity, and the generator after them."""
     from repro_torch.core import (BatchFeatureStore, FeatureInjector,
                                   FeatureStoreConfig, InjectionConfig,
-                                  PipelineConfig, RealtimeConfig,
-                                  RealtimeFeatureService,
-                                  RecommenderPlatform)
+                                  RealtimeConfig, RealtimeFeatureService)
 
     n_items = cfg.vocab_size - 256
     rng = np.random.RandomState(SEED)
@@ -562,13 +598,10 @@ def build_platform(dev, params, cfg):
     inj = FeatureInjector(InjectionConfig(policy="inject",
                                           feature_len=FEATURE_LEN),
                           store, rts, device=dev)
-    plat = RecommenderPlatform(
-        PipelineConfig(n_items=n_items, serve_batch=SERVE_BATCH), cfg,
-        params, inj, pop / pop.sum(), device=dev)
     print(f"feature plane: {N_USERS} users, {N_EVENTS} events, snapshot at "
           f"day 30, {N_FRESH} fresh events after it; built in "
           f"{time.perf_counter() - t0:.1f} s (host)")
-    return plat, rng
+    return inj, pop / pop.sum(), rng
 
 
 def check_slates(plat, users, now, slates):
@@ -3628,9 +3661,505 @@ def run_frontend_archs(dev, gpu, report):
     return total
 
 
-def main() -> int:
+# ----------------------------------------------------------------------
+# Phase 20: the device mesh
+# ----------------------------------------------------------------------
+
+# the modules' collective call sites, timed by CollectiveClock
+COLLECTIVE_SITES = (
+    ("repro_torch.models.attention", ("all_gather", "all_reduce")),
+    ("repro_torch.models.mlp", ("all_reduce",)),
+    ("repro_torch.models.moe", ("all_reduce",)),
+    ("repro_torch.models.ssm", ("all_gather", "all_reduce")),
+    ("repro_torch.models.model", ("all_gather",)),
+    ("repro_torch.serving.engine", ("gather_rows",)))
+
+
+class CollectiveClock:
+    """Host-clock ms of the mesh's collectives by kind ("all_reduce
+    model", "all_gather data", ...), each call between two device
+    synchronises; a collective over a one-rank axis (an identity) is not
+    counted."""
+
+    def __init__(self):
+        self.ms, self.calls = {}, {}
+
+    def _wrap(self, name, fn):
+        import torch
+        from repro_torch.sharding.local import group_size
+
+        def timed(x, mesh, *args, **kwargs):
+            axis = ("data" if name == "gather_rows" else
+                    args[0] if args else kwargs.get("axis", "model"))
+            if x is None or group_size(mesh, axis) == 1:
+                return fn(x, mesh, *args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x, mesh, *args, **kwargs)
+            torch.cuda.synchronize()
+            kind = f"{'all_gather' if name == 'gather_rows' else name} {axis}"
+            self.ms[kind] = self.ms.get(kind, 0.0) + \
+                (time.perf_counter() - t0) * 1e3
+            self.calls[kind] = self.calls.get(kind, 0) + 1
+            return out
+        return timed
+
+    def patches(self):
+        import importlib
+        out = []
+        for module, names in COLLECTIVE_SITES:
+            mod = importlib.import_module(module)
+            out += [mock.patch.object(mod, n, self._wrap(n, getattr(mod, n)))
+                    for n in names]
+        return out
+
+
+def mesh_users(injector, now, n=MESH_USERS):
+    """Phase 20's ``n`` hit users and ``n`` miss users (each with fresh
+    events), the same in every process."""
+    rng = np.random.RandomState(SEED + 20)
+    hit = fresh_users(injector, now, rng, n)
+    return hit, fresh_users(injector, now, rng, n, exclude=hit)
+
+
+def mesh_gateways(eng, injector, hit_users, miss_users, now, label, gpu,
+                  clock=False):
+    """Each of MESH_BACKENDS behind a Gateway over ``eng``: warm the hit
+    users, a hit wave (all hits on the inject path) and a miss wave (all
+    prefills), phases timed. With ``clock`` the hit wave runs once more
+    with the collectives timed. Returns {backend: (tickets, stats,
+    {wave: ms per pane by phase}, collective ms per pane and share)} and
+    the kernels' launches."""
+    from repro_torch.serving import Gateway
+
+    launches = dict.fromkeys(MESH_KERNELS, 0)
+    runs = {}
+    for backend in MESH_BACKENDS:
+        gw = Gateway(eng, injector, gateway_config(backend,
+                                                   GW_CACHE_ENTRIES))
+        name = f"{label} {backend}"
+        n = gateway_warm(gw, hit_users, now, name, gpu, MESH_KERNELS)
+        phases = {}
+        waves = []
+        for wave, users in (("hit", hit_users), ("miss", miss_users)):
+            pc = PhaseClock()
+            tickets, n_w, elapsed, delta = gateway_wave(
+                gw, users, now, f"{name} {wave}", gpu, clock=pc)
+            want = "hits" if wave == "hit" else "misses"
+            if delta[want] != len(users):
+                raise SystemExit(f"phase 20 {name} {wave} wave: "
+                                 f"{delta[want]} {want} of {len(users)}")
+            panes = -(-len(users) // eng.scfg.max_batch)
+            phases[wave] = dict({k: v / panes for k, v in pc.ms.items()},
+                                total=elapsed * 1e3 / panes)
+            waves += tickets
+            for k in launches:
+                launches[k] += n_w[k]
+        for k in launches:
+            launches[k] += n[k]
+        shares = None
+        if clock:
+            cc = CollectiveClock()
+            with contextlib.ExitStack() as stack:
+                for patch in cc.patches():
+                    stack.enter_context(patch)
+                _, _, elapsed, _ = gateway_wave(
+                    gw, hit_users, now, f"{name} hit (collectives timed)",
+                    gpu)
+            panes = -(-len(hit_users) // eng.scfg.max_batch)
+            shares = {k: (v / panes, v / (elapsed * 1e3))
+                      for k, v in cc.ms.items()}
+            print(f"{name} hit wave collectives, ms per pane and "
+                  f"share of the wave (host clock, each between device "
+                  f"synchronises): " + (", ".join(
+                      f"{k} {ms:.3f} ({sh:.1%}, {cc.calls[k]} calls)"
+                      for k, (ms, sh) in shares.items()) or "none")
+                  + f" [{gpu}]")
+        runs[backend] = (waves, gw.stats(), phases, shares)
+    return runs, launches
+
+
+def run_mesh_1x1(dev, gpu, plat, params, now):
+    """Phase 20 (a): the sharded code path on a 1x1 NCCL mesh in this
+    process. itfi's Gateway at full width (pane 256, bf16) from the host
+    LRU and then the pool, on the mesh-free engine and on the 1x1 mesh's
+    engine: every response bit for bit, every counter equal. Returns the
+    mesh engine's launches."""
+    import torch
+    from repro_torch.launch.mesh import close_mesh, make_serving_mesh
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    t0 = time.perf_counter()
+    mesh = make_serving_mesh(1, 1, device=dev)
+    try:
+        scfg = ServingConfig(max_batch=SERVE_BATCH, prefill_len=PANE_PREFILL,
+                             inject_len=PANE_INJECT,
+                             cache_capacity=PANE_CAPACITY)
+        cfg = plat.model_cfg
+        hit, miss = mesh_users(plat.injector, now)
+        runs = {}
+        for label, m in (("mesh-free", None), ("1x1 mesh", mesh)):
+            eng = ServingEngine(cfg, params, scfg, device=dev, mesh=m)
+            runs[label], n = mesh_gateways(eng, plat.injector, hit, miss,
+                                           now, f"phase 20 {label}", gpu)
+            del eng
+            torch.cuda.empty_cache()
+        for backend in MESH_BACKENDS:
+            want, want_st = runs["mesh-free"][backend][:2]
+            got, got_st = runs["1x1 mesh"][backend][:2]
+            for a, b in zip(want, got):
+                if not (np.array_equal(a.response.slate, b.response.slate)
+                        and np.array_equal(a.response.scores,
+                                           b.response.scores)):
+                    raise SystemExit(f"phase 20 {backend}: a 1x1 mesh "
+                                     f"response differs from the mesh-free "
+                                     f"one")
+            if want_st != got_st:
+                raise SystemExit(f"phase 20 {backend}: the 1x1 mesh's "
+                                 f"counters differ\n{want_st}\n{got_st}")
+            check_gateway_slates(got, cfg.vocab_size, f"1x1 {backend}")
+        print(f"phase 20 (a): itfi Gateway on a 1x1 NCCL mesh, host LRU and "
+              f"pool, {2 * MESH_USERS} responses each bit for bit the "
+              f"mesh-free Gateway's, every counter equal; launches {n}; "
+              f"{time.perf_counter() - t0:.1f} s [{gpu}]")
+    finally:
+        close_mesh()
+    return n
+
+
+def _quiet_ranks():
+    """Only rank 0 of a spawned mesh prints."""
+    import torch.distributed as dist
+    if dist.get_rank() != 0:
+        sys.stdout = open(os.devnull, "w")
+
+
+def mesh_itfi_worker(mesh, device_type, users, batch):
+    """Phase 20 (b) on one rank: the full-width itfi Gateway over the
+    feature plane, ``users`` a wave in panes of ``batch``, in fp32 (the
+    responses, and on a 1x1 mesh each row's smallest pick gap) and then in
+    bf16 (phases and collectives timed)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    _quiet_ranks()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device("cpu"))
+    gpu = card() if device_type == "cuda" else "cpu"
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    label = f"phase 20 {sizes['data']}x{sizes['model']}"
+    cfg = get_config("itfi-ranker")
+    injector, _, _ = build_feature_plane(dev, cfg)
+    now = 30 * DAY + 7200 + 60
+    hit, miss = mesh_users(injector, now, users)
+    scfg = ServingConfig(max_batch=batch, prefill_len=PANE_PREFILL,
+                         inject_len=PANE_INJECT, cache_capacity=PANE_CAPACITY)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        kind = str(dtype).split(".")[1]
+        params = init_params(cfg, torch.Generator().manual_seed(SEED), dtype,
+                             dev, mesh=mesh)
+        eng = ServingEngine(cfg, params, scfg, device=dev, mesh=mesh)
+        runs, launches = mesh_gateways(eng, injector, hit, miss, now,
+                                       f"{label} {kind}", gpu,
+                                       clock=dtype == torch.bfloat16)
+        out[kind] = {b: {"slates": np.stack([t.response.slate for t in w]),
+                         "scores": np.stack([t.response.scores[:cfg.vocab_size]
+                                             for t in w]),
+                         "paths": [t.response.telemetry.path for t in w],
+                         "phases": ph, "collectives": sh}
+                     for b, (w, _, ph, sh) in runs.items()}
+        out[kind]["launches"] = launches
+        if dtype == torch.float32 and mesh.size(0) * mesh.size(1) == 1:
+            gaps = []
+            for wave in (hit, miss):
+                for lo in range(0, len(wave), batch):
+                    state, _ = serve_pane(eng, *pane_inputs(
+                        eng, injector, wave[lo:lo + batch], now))
+                    gaps.append(pick_gaps(eng, state).min(1).values.cpu())
+            out["gaps"] = torch.cat(gaps).numpy()
+        del eng, params
+        if device_type == "cuda":
+            torch.cuda.empty_cache()
+    out["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                      if device_type == "cuda" else 0.0)
+    return out
+
+
+def mesh_jamba_worker(mesh, device_type, cfg, batch):
+    """Phase 20 (b) on one rank: ``cfg`` (jamba-v0.1-52b at full width) in
+    bf16 on the mesh through ServingEngine: a sharded init from the seed, a
+    warm-up
+    pane recording layer 0's kernel inputs, then JAMBA_PANES panes of
+    prefill -> inject -> decode_slate timed by phase with their kernel
+    launches; rank 0 holds the recorded inputs against the plain versions.
+    Returns rank 0's numbers and every rank's peak memory."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counters
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    _quiet_ranks()
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device("cpu"))
+    gpu = card() if device_type == "cuda" else "cpu"
+    sync = torch.cuda.synchronize if device_type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, gen, torch.bfloat16, dev, mesh=mesh)
+    sync()
+    init_s = time.perf_counter() - t0
+    local_gb = sum(x.nbytes for x in _leaves(params)) / 1e9
+    scfg = ServingConfig(max_batch=batch, prefill_len=PANE_PREFILL,
+                         inject_len=PANE_INJECT, cache_capacity=PANE_CAPACITY)
+    eng = ServingEngine(cfg, params, scfg, device=dev, mesh=mesh)
+    del params
+    gc.collect()
+    init_peak = 0.0
+    if device_type == "cuda":
+        init_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    print(f"phase 20 jamba: {cfg.name} on a {mesh.size(0)}x{mesh.size(1)} "
+          f"mesh, sharded bf16 init from seed {SEED} in {init_s:.1f} s, "
+          f"{local_gb:.3f} GB of params a rank, peak {init_peak:.2f} GB "
+          f"through the init and the engine's copy; ServingEngine(max_batch="
+          f"{batch}, prefill {PANE_PREFILL}, inject {PANE_INJECT}, capacity "
+          f"{PANE_CAPACITY}), slate {SLATE_LEN}; graph slates "
+          f"{eng.graph_slates} [{gpu}]")
+    rng = np.random.RandomState(SEED + 21)
+    panes = []
+    for _ in range(JAMBA_PANES + 1):
+        hists = [list(rng.randint(1, cfg.vocab_size, rng.randint(
+            PANE_PREFILL // 2, PANE_PREFILL + 1))) for _ in range(batch)]
+        fresh = [list(rng.randint(1, cfg.vocab_size, rng.randint(
+            1, PANE_INJECT + 1))) for _ in range(batch)]
+        panes.append((eng.pad_tokens(hists, PANE_PREFILL),
+                      eng.pad_tokens(fresh, PANE_INJECT, align="left")))
+
+    def pane(inputs, times=None):
+        (toks, valid), (stoks, svalid) = inputs
+        marks = [time.perf_counter()]
+
+        def mark():
+            sync()
+            marks.append(time.perf_counter())
+        state = eng.prefill(toks, valid, logits_last_only=True)
+        mark()
+        state = eng.inject(state, stoks, svalid,
+                           fallback_logits=state["logits"][:, -1])
+        mark()
+        slate = eng.decode_slate(state, state["first_logits"], SLATE_LEN)
+        mark()
+        if times is not None:
+            for name, a, b in zip(("prefill", "inject", "decode_slate"),
+                                  marks, marks[1:]):
+                times.setdefault(name, []).append((b - a) * 1e3)
+        return slate
+
+    rec_fa, fa_calls = record_calls(attn_mod, "flash_attention")
+    rec_da, da_calls = record_calls(attn_mod, "decode_attention")
+    rec_ssd, ssd_calls = record_calls(ssm_mod, "ssd_scan")
+    with rec_fa, rec_da, rec_ssd:
+        pane(panes[0])
+    sync()
+    ops = launch_counters()
+    for op in ops.values():
+        op.launches = 0
+    times = {}
+    t0 = time.perf_counter()
+    slates = [pane(p, times) for p in panes[1:]]
+    elapsed = time.perf_counter() - t0
+    launches = {n: ops[n].launches for n in JAMBA_KERNELS}
+    for s in slates:
+        if s.shape != (batch, SLATE_LEN) or s.min() < 0 \
+                or s.max() >= cfg.vocab_size \
+                or any(len(set(r.tolist())) != SLATE_LEN for r in s):
+            raise SystemExit(f"phase 20 jamba: a bad slate, shape {s.shape}")
+    peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+            if device_type == "cuda" else 0.0)
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
+    phases = {k: float(np.mean(v)) for k, v in times.items()}
+    print(f"time phase 20 jamba bf16: {JAMBA_PANES} panes of {batch} in "
+          f"{elapsed:.2f} s, ms a pane: " + ", ".join(
+              f"{k} {v:.1f} (runs {', '.join(f'{x:.1f}' for x in times[k])})"
+              for k, v in phases.items())
+          + f"; launches {launches}; peak memory a rank {peaks} GB "
+          f"(host clock, synchronised) [{gpu}]")
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"phase 20 jamba: a kernel never launched: "
+                         f"{launches}")
+    checks = {}
+    if dist.get_rank() == 0 and device_type == "cuda":
+        report = {"flash_attention": {}, "decode_attention": {}}
+        check_flash_rows("jamba", fa_calls[0][0], cfg.sliding_window,
+                         "jamba layer-3 (first attention) prefill, rank 0 "
+                         "shard", report, gpu)
+        check_decode_at("jamba", da_calls[0][0], "jamba layer-3 decode, "
+                        "rank 0 shard", report, gpu)
+        args, kwargs = ssd_calls[0]
+        checks["ssd_scan"] = check_ssd_at(args, kwargs, "jamba layer-0 "
+                                          "prefill, rank 0 shard", gpu)
+        checks.update({k: {"ms": v["jamba_ms"], "plain_ms":
+                           v["jamba_plain_ms"], "max_abs_err":
+                           v["jamba_max_abs_err"]}
+                       for k, v in report.items()})
+    dist.barrier()
+    return {"phases": phases, "launches": launches, "peaks": peaks,
+            "init_s": init_s, "init_peak": init_peak, "local_gb": local_gb,
+            "checks": checks}
+
+
+def check_ssd_at(args, kwargs, label, gpu):
+    """ssd_scan at a recorded call against the plain version (y and the
+    final state held to ``assert_scaled``), then timed."""
+    import torch
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    kind = str(args[0].dtype).split(".")[1]
+    y, h = ssd_scan(*args, **kwargs)
+    want_y, want_h = ssd_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    err = max(float((y.float() - want_y.float()).abs().max()),
+              float((h.float() - want_h.float()).abs().max()))
+    assert_scaled(y, want_y, kind, f"ssd_scan at the {label} (y)")
+    assert_scaled(h, want_h, "float32" if h.dtype == torch.float32 else kind,
+                  f"ssd_scan at the {label} (state)")
+    ms, plain_ms, bound_ms, bound_by = time_ssd_scan(args, kwargs, label, gpu)
+    print(f"ssd_scan {kind} at the {label}: max abs err {err:.3g} vs the "
+          f"plain version (tolerance {TOL[kind]}) [{gpu}]")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
+
+
+def _first_flip_ok(want, got, gaps, label):
+    """Rows whose slates differ between two fp32 runs: each must have a
+    pick gap within E2E_TOL in the reference. Returns the differing
+    rows' count."""
+    rows = np.flatnonzero((want != got).any(1))
+    bad = [int(r) for r in rows if gaps[r] > E2E_TOL]
+    if bad:
+        raise SystemExit(f"{label}: {len(bad)} slates differ on rows whose "
+                         f"picks are separated by more than {E2E_TOL}: "
+                         f"rows {bad[:8]}, gaps {[float(gaps[r]) for r in bad[:8]]}")
+    return len(rows)
+
+
+def run_mesh_cards(gpu, device_type="cuda"):
+    """Phase 20 (b), with at least four cards: itfi's Gateway at full width
+    on 1x1, 4x1 and 2x2 NCCL meshes (fp32 responses of 4x1 and 2x2 against
+    1x1's, bf16 timed by phase and collective), then jamba-v0.1-52b at full
+    width on 1x4. Returns the meshes' kernel launches."""
+    import gc
+
+    import torch
+    from repro_torch.launch.mesh import run_on_mesh
+
+    cards = torch.cuda.device_count() if device_type == "cuda" else 4
+    if cards < 4:
+        print(f"phase 20 (b): not run: it needs 4 cards and this machine "
+              f"has {cards} (torch.cuda.device_count()); the itfi 4x1 and "
+              f"2x2 meshes and jamba-v0.1-52b on 1x4 run on four cards")
+        return {}
+    gc.collect()
+    if device_type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(JAMBA_KERNELS, 0)
+    results = {}
+    for shape in ((1, 1),) + MESH_SHAPES:
+        t1 = time.perf_counter()
+        results[shape] = run_on_mesh(*shape, mesh_itfi_worker, device_type,
+                                     MESH_USERS, SERVE_BATCH,
+                                     device=device_type, timeout_s=600)
+        print(f"phase 20 itfi {shape[0]}x{shape[1]}: "
+              f"{time.perf_counter() - t1:.1f} s with its processes' start "
+              f"[{gpu}]")
+        for kind in ("float32", "bfloat16"):
+            for k, v in results[shape][kind]["launches"].items():
+                launches[k] += v
+    ref = results[(1, 1)]["float32"]
+    gaps = results[(1, 1)]["gaps"]
+    for shape in MESH_SHAPES:
+        name = f"{shape[0]}x{shape[1]}"
+        for backend in MESH_BACKENDS:
+            want, got = ref[backend], results[shape]["float32"][backend]
+            if want["paths"] != got["paths"]:
+                raise SystemExit(f"phase 20 {name} {backend}: paths differ")
+            err = float(np.abs(want["scores"] - got["scores"]).max())
+            if err > E2E_TOL:
+                raise SystemExit(f"phase 20 {name} {backend}: scores max abs "
+                                 f"err {err:.3g} over {E2E_TOL}")
+            flips = _first_flip_ok(want["slates"], got["slates"], gaps,
+                                   f"phase 20 {name} {backend}")
+            print(f"phase 20 fp32 itfi Gateway {name} vs 1x1, {backend}: "
+                  f"{len(gaps)} responses, scores max abs err {err:.3g} "
+                  f"(tolerance {E2E_TOL}), {flips} slates differ, each on a "
+                  f"row whose picks tie within {E2E_TOL} [{gpu}]")
+    for shape, res in results.items():
+        for backend in MESH_BACKENDS:
+            ph = res["bfloat16"][backend]["phases"]
+            sh = res["bfloat16"][backend]["collectives"] or {}
+            print(f"phase 20 bf16 itfi Gateway {shape[0]}x{shape[1]} "
+                  f"{backend}, ms a pane of {SERVE_BATCH} by phase: " +
+                  "; ".join(f"{w} " + ", ".join(f"{k} {v:.3f}"
+                                                for k, v in p.items())
+                            for w, p in ph.items())
+                  + "; collectives in the hit wave: " + (", ".join(
+                      f"{k} {ms:.3f} ms ({s:.1%})"
+                      for k, (ms, s) in sh.items()) or "none")
+                  + f"; peak {res['peak_gb']:.2f} GB a rank [{gpu}]")
+    t1 = time.perf_counter()
+    from repro_torch.configs import get_config
+    jam = run_on_mesh(*JAMBA_MESH, mesh_jamba_worker, device_type,
+                      get_config(JAMBA_ARCH), JAMBA_BATCH,
+                      device=device_type, timeout_s=900)
+    for k, v in jam["launches"].items():
+        launches[k] += v
+    print(f"phase 20 jamba {JAMBA_MESH[0]}x{JAMBA_MESH[1]}: "
+          f"{time.perf_counter() - t1:.1f} s with its processes' start; "
+          f"ms a pane of {JAMBA_BATCH}: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in jam["phases"].items())
+          + f"; peak memory a rank {[round(p, 2) for p in jam['peaks']]} "
+          f"GB; kernels at rank 0's layer inputs {jam['checks']} [{gpu}]")
+    print(f"time phase 20 (b): {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches} [{gpu}]")
+    return launches
+
+
+def mesh_only(dev, gpu) -> int:
+    """``--mesh-only``: phase 20 alone, (a) over its own full-width itfi
+    ranker and feature plane, then (b) where there are four cards. Prints
+    its checks and times, and no result line."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+
+    cfg = get_config("itfi-ranker")
+    params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                         torch.bfloat16, dev)
+    plat, _ = build_platform(dev, params, cfg)
+    now = 30 * DAY + 7200 + 60
+    launches = run_mesh_1x1(dev, gpu, plat, params, now)
+    del plat, params
+    for k, v in run_mesh_cards(gpu).items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"phase 20 alone: launches {launches} [{gpu}]")
+    return 0
+
+
+def main(argv=None) -> int:
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3646,6 +4175,11 @@ def main() -> int:
     _build.build(names)
     print(f"built {', '.join(names)} with nvcc in "
           f"{time.perf_counter() - t0:.1f} s")
+    if argv == ["--mesh-only"]:
+        return mesh_only(dev, gpu)
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
 
     report = {}
     check_history_merge(dev, report, gpu)
@@ -3655,6 +4189,7 @@ def main() -> int:
     token_launches = run_token_path(dev, gpu, plat, params, now, report)
     run_slate_graph(dev, gpu, plat, params, now)
     gateway_launches = run_gateway_path(dev, gpu, plat, params, now)
+    mesh_launches = run_mesh_1x1(dev, gpu, plat, params, now)
     check_ssd_scan(dev, report)
     ssm_launches = run_mamba2_path(dev, gpu, plat, now, report)
     ssm_gateway_launches = run_mamba2_gateway(dev, gpu, plat, now)
@@ -3664,13 +4199,15 @@ def main() -> int:
     ab_launches = run_ab_experiment(dev, gpu, report)
     scenario_launches = run_scenarios(dev, gpu)
     frontend_launches = run_frontend_archs(dev, gpu, report)
+    cards_launches = run_mesh_cards(gpu)
     missing = set(names) ^ set(report)
     if missing:
         raise SystemExit(f"kernels without a check: {sorted(missing)}")
     for name, n in (*token_launches.items(), *gateway_launches.items(),
                     *ssm_launches.items(), *ssm_gateway_launches.items(),
                     *ab_launches.items(), *scenario_launches.items(),
-                    *frontend_launches.items()):
+                    *frontend_launches.items(), *mesh_launches.items(),
+                    *cards_launches.items()):
         launches[name] = launches.get(name, 0) + n
     kernels = [dict(report[n], launches=launches[n]) for n in names]
     print(json.dumps({"kernels": kernels}))

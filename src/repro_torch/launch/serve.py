@@ -46,7 +46,14 @@ tiny ranker, or on a reduced variant of ``--arch`` when given:
   PYTHONPATH=src python -m repro_torch.launch.serve --scenario diurnal \
       --smoke --device cpu
 
-The device mesh (``--mesh``) is not ported yet and raises.
+``--mesh DATA,MODEL`` runs either mode sharded over a ("data", "model")
+device mesh: ``DATA * MODEL`` processes (``launch/mesh.py``,
+``run_on_mesh``), gloo ranks with ``--device cpu`` and one NCCL rank a
+card with ``--device cuda``. Every rank runs the same program; rank 0
+prints. ``--batch`` must be a multiple of ``DATA``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch itfi-ranker \
+      --reduced --device cpu --loop --mesh 2,1 --batch 4 --users 40
 """
 from __future__ import annotations
 
@@ -62,12 +69,9 @@ from repro_torch.models.model import init_params
 from repro_torch.serving.engine import ServingConfig, ServingEngine
 
 DAY = 86400
-UNPORTED = {
-    "mesh": "the device mesh (ROADMAP.md, queue 1, item 9)",
-}
 
 
-def run_loop(cfg, params, args, device) -> None:
+def run_loop(cfg, params, args, device, mesh=None, log=print) -> None:
     """Deterministic seeded request trace through the Gateway:
     per-request arrivals interleaved with feedback events, pane-full and
     deadline flushes, optional per-request A/B arms, and optionally a
@@ -83,7 +87,8 @@ def run_loop(cfg, params, args, device) -> None:
     eng = ServingEngine(cfg, params, ServingConfig(
         max_batch=args.batch, prefill_len=args.history,
         inject_len=args.fresh,
-        cache_capacity=args.history + args.fresh + 64), device=device)
+        cache_capacity=args.history + args.fresh + 64), device=device,
+        mesh=mesh)
     rng = np.random.RandomState(args.seed)
 
     store = BatchFeatureStore(FeatureStoreConfig(
@@ -105,7 +110,7 @@ def run_loop(cfg, params, args, device) -> None:
         snapshot_build_budget=args.build_budget,
         rewarm_budget=args.rewarm))
     if args.pool:
-        print(f"paged state pool: {args.pool} device slots x "
+        log(f"paged state pool: {args.pool} device slots x "
               f"{gw.pool.slot_nbytes / 1e6:.2f} MB/slot"
               + (f", continuous max_wait={args.max_wait}s"
                  if args.max_wait is not None else ""))
@@ -118,7 +123,7 @@ def run_loop(cfg, params, args, device) -> None:
     t0 = time.perf_counter()
     warmed = gw.warm(np.arange(n_users), now)
     sync()
-    print(f"warm: {warmed} prefill states in "
+    log(f"warm: {warmed} prefill states in "
           f"{time.perf_counter() - t0:.2f} s")
 
     deadline = args.batch * 2  # seconds an arrival may wait in the queue
@@ -150,7 +155,7 @@ def run_loop(cfg, params, args, device) -> None:
             raise SystemExit(f"round {r}: a request was not served")
         hits = sum(t.response.telemetry.cache_hit for t in tickets)
         qd = np.array([t.response.telemetry.queue_delay for t in tickets])
-        print(f"round {r}: {len(tickets)} reqs in {dt * 1e3:6.1f} ms "
+        log(f"round {r}: {len(tickets)} reqs in {dt * 1e3:6.1f} ms "
               f"({len(tickets) / dt:7.1f} req/s) hits={hits} "
               f"queue-delay p50={np.percentile(qd, 50):.0f}s "
               f"max={qd.max()}s slate[0]="
@@ -164,7 +169,7 @@ def run_loop(cfg, params, args, device) -> None:
             now = ((now // DAY) + 1) * DAY + 100
             gw.tick(now)
             ro = gw.stats().rollover
-            print(f"-- generation rollover at {now}: rekeyed={ro.rekeyed} "
+            log(f"-- generation rollover at {now}: rekeyed={ro.rekeyed} "
                   f"invalidated={ro.invalidated} "
                   f"pending_build={ro.pending_build_users} "
                   f"pending_rewarm={ro.pending_rewarm}")
@@ -175,17 +180,17 @@ def run_loop(cfg, params, args, device) -> None:
         for t in tickets:
             by_arm.setdefault(t.response.telemetry.tag, 0)
             by_arm[t.response.telemetry.tag] += 1
-        print(f"last-round arms (mixed panes): {by_arm}")
-    print(f"telemetry: paths={st.paths} "
+        log(f"last-round arms (mixed panes): {by_arm}")
+    log(f"telemetry: paths={st.paths} "
           f"queue_delay p50={st.queue_delay['p50']:.0f}s "
           f"p99={st.queue_delay['p99']:.0f}s "
           f"deadline_flushes={st.deadline_flushes} panes={st.panes}")
     ro = st.rollover
-    print(f"rollover: rollovers={ro.rollovers} rekeyed={ro.rekeyed} "
+    log(f"rollover: rollovers={ro.rollovers} rekeyed={ro.rekeyed} "
           f"invalidated={ro.invalidated} rebuilt={ro.rebuilt} "
           f"build_steps={ro.build_steps} "
           f"build_time={ro.build_time_s * 1e3:.1f}ms")
-    print(f"stats: {st.as_dict()}")
+    log(f"stats: {st.as_dict()}")
 
 
 def run_scenario_cli(args, device) -> None:
@@ -216,7 +221,7 @@ def run_scenario_cli(args, device) -> None:
         print(f"  SLO: {'PASS' if res.slo_pass else 'FAIL'}")
 
 
-def main(argv=None) -> None:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default=None,
                     help="registered model config (required unless "
@@ -225,12 +230,12 @@ def main(argv=None) -> None:
     ap.add_argument("--reduced", action="store_true",
                     help="a 2-layer, 256-wide variant of --arch")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--history", type=int, default=256,
                     help="padded batch-history length (prefill)")
-    ap.add_argument("--fresh", type=int, default=16,
+    ap.add_argument("--fresh", type=int, default=8,
                     help="padded fresh-suffix length (inject)")
-    ap.add_argument("--decode-steps", type=int, default=8)
+    ap.add_argument("--decode-steps", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--loop", action="store_true",
                     help="drive the request-level Gateway with a seeded trace")
@@ -258,7 +263,9 @@ def main(argv=None) -> None:
                     help="--loop: per-request A/B arms (control = batch, "
                          "treatment = inject) sharing the same panes")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                    help="not ported: " + UNPORTED["mesh"])
+                    help="run sharded over a data,model mesh of processes "
+                         "(e.g. 2,1); --batch must be a multiple of the "
+                         "data size")
     ap.add_argument("--scenario", default=None, metavar="NAME",
                     help="replay a named production traffic scenario "
                          "(diurnal / flash_crowd / cold_start_storm / "
@@ -267,29 +274,55 @@ def main(argv=None) -> None:
                          "the SLO scorecard; --smoke shrinks the trace")
     ap.add_argument("--smoke", action="store_true",
                     help="--scenario: short-horizon variant of the trace")
-    args = ap.parse_args(argv)
-    for name, what in UNPORTED.items():
-        if getattr(args, name) not in (None, False):
-            ap.error(f"--{name} needs {what}, which is not ported yet")
+    return ap
 
+
+def main(argv=None) -> None:
+    ap = build_parser()
+    args = ap.parse_args(argv)
     device = resolve_device(args.device)
     if args.scenario:
         run_scenario_cli(args, device)
         return
     if args.arch is None:
         ap.error("--arch is required (except with --scenario)")
+    if args.mesh is None:
+        serve(None, args)
+        return
+    shape = tuple(int(x) for x in args.mesh.split(","))
+    if len(shape) != 2:
+        raise SystemExit("--mesh wants two sizes: data,model")
+    from repro_torch.launch import serve as this  # by name, for the ranks
+    from repro_torch.launch.mesh import run_on_mesh
+    run_on_mesh(*shape, this.serve, args, device=device)
+
+
+def serve(mesh, args) -> None:
+    """Either mode, on ``mesh`` (a rank of it; rank 0 prints) or on one
+    device."""
+    import torch.distributed as dist
+
+    device = resolve_device(args.device)
+    log = print
+    if mesh is not None:
+        if dist.get_rank() != 0:
+            def log(*a, **k):
+                return None
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        log(f"mesh: data={sizes['data']} model={sizes['model']} "
+            f"({dist.get_world_size()} {dist.get_backend()} ranks)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     params = init_params(cfg, torch.Generator().manual_seed(args.seed),
-                         torch.float32, device)
+                         torch.float32, device, mesh=mesh)
     if args.loop:
-        run_loop(cfg, params, args, device)
+        run_loop(cfg, params, args, device, mesh, log)
         return
     scfg = ServingConfig(max_batch=args.batch, prefill_len=args.history,
                          inject_len=args.fresh,
                          cache_capacity=args.history + args.fresh + 64)
-    eng = ServingEngine(cfg, params, scfg, device=device)
+    eng = ServingEngine(cfg, params, scfg, device=device, mesh=mesh)
     rng = np.random.RandomState(args.seed)
     hists = [list(rng.randint(1, cfg.vocab_size, rng.randint(
         args.history // 2, args.history))) for _ in range(args.batch)]
@@ -307,8 +340,8 @@ def main(argv=None) -> None:
         t1 = time.perf_counter()
         out = fn(*a)
         sync()
-        print(f"{name:22s} cold={t1 - t0:7.3f}s "
-              f"warm={time.perf_counter() - t1:7.3f}s")
+        log(f"{name:22s} cold={t1 - t0:7.3f}s "
+            f"warm={time.perf_counter() - t1:7.3f}s")
         return out
 
     if cfg.ssm is None:
@@ -316,9 +349,9 @@ def main(argv=None) -> None:
     else:
         mixer = (f"{cfg.n_ssm_heads} SSD heads of {cfg.ssm.head_dim}, "
                  f"d_state {cfg.ssm.d_state}")
-    print(f"arch {cfg.name} on {device}: {cfg.n_layers} layers, d "
-          f"{cfg.d_model}, {mixer}, vocab {cfg.vocab_size}, float32 weights "
-          f"from seed {args.seed}")
+    log(f"arch {cfg.name} on {device}: {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {mixer}, vocab {cfg.vocab_size}, float32 weights "
+        f"from seed {args.seed}")
     toks, valid = eng.pad_tokens(hists, args.history)
     state = timed("prefill(batch hist)", eng.prefill, toks, valid)
     stoks, svalid = eng.pad_tokens(fresh, args.fresh, align="left")
@@ -334,8 +367,9 @@ def main(argv=None) -> None:
     dt = (time.perf_counter() - t0) / max(args.decode_steps, 1)
     if not torch.isfinite(logits[:, :cfg.vocab_size]).all():
         raise SystemExit("non-finite decode logits")
-    print(f"decode: {args.decode_steps} steps, {dt * 1e3:.1f} ms/step; "
-          f"last tokens {tok[:, 0].tolist()}")
+    last = eng.full_rows(tok)[:, 0].tolist()  # every rank joins the gather
+    log(f"decode: {args.decode_steps} steps, {dt * 1e3:.1f} ms/step; "
+        f"last tokens {last}")
 
 
 if __name__ == "__main__":

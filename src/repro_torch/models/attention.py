@@ -1,5 +1,5 @@
-"""GQA attention for a dense single-device stack: full-sequence (prefill,
-extend) and one-token decode against a ring KV cache.
+"""GQA attention: full-sequence (prefill, extend) and one-token decode
+against a ring KV cache, on one device or on a rank's shards.
 
 The contractions run in the ``flash_attention`` and ``decode_attention``
 ops: the hand-written CUDA kernels on the card, their plain versions on
@@ -7,6 +7,16 @@ the CPU. Masks are built exactly as the JAX package's ``attention_full``
 and ``attention_decode`` build them: causal by position, then the sliding
 window, then key validity; and for decode the ring validity of each slot.
 Keys are stored RoPE-rotated, so a ring overwrite needs no re-rotation.
+
+With a ``mesh`` the params are the rank's shards in the serving layout
+(``sharding/rules.py``, decode rules), and the layout is read from their
+shapes. Heads on the model axis (the kv heads divide it): the rank runs
+the kernel on its own heads against its own cache heads, and the output
+projection's partial sums are all-reduced. head_dim on the model axis
+(they do not): q is all-gathered to full heads before RoPE, K/V (whose
+projections are replicated) are full, the cache holds the rank's
+head_dim block and is all-gathered before the kernel, and the rank keeps
+its head_dim block of the output for its rows of ``wo``, then all-reduces.
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.common import scaled_init
 from repro_torch.models.rope import apply_rope
+from repro_torch.sharding.local import all_gather, all_reduce, shard_block
 
 
 def init_attention(gen, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
@@ -37,8 +48,10 @@ def init_attention(gen, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
     return p
 
 
-def _project_qkv(params, x, positions, cfg: ModelConfig):
-    """x (B,S,d) -> q (B,S,nq,hd), k/v (B,S,nkv,hd); q,k RoPE-rotated."""
+def _project_qkv(params, x, positions, cfg: ModelConfig, mesh=None):
+    """x (B,S,d) -> q (B,S,nq,hd), k/v (B,S,nkv,hd); q,k RoPE-rotated.
+    On a mesh the heads are the rank's; q is all-gathered to the full
+    head_dim when its projection holds a head_dim block."""
     q = torch.einsum("bsd,dnh->bsnh", x, params["wq"])
     k = torch.einsum("bsd,dnh->bsnh", x, params["wk"])
     v = torch.einsum("bsd,dnh->bsnh", x, params["wv"])
@@ -46,9 +59,37 @@ def _project_qkv(params, x, positions, cfg: ModelConfig):
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
+    if q.shape[-1] != cfg.head_dim_:
+        q = all_gather(q, mesh, "model", -1)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _hd_sharded(params, cfg: ModelConfig) -> bool:
+    """Whether the rank's ``wo`` holds a head_dim block (head_dim on the
+    model axis)."""
+    return params["wo"].shape[-2] != cfg.head_dim_
+
+
+def _out_proj(params, out, cfg: ModelConfig, mesh):
+    """The output projection of the attention output (B,S,heads,hd): on a
+    mesh the rank's head_dim block of it when ``wo`` holds one, and the
+    partial sums all-reduced over the model axis when ``wo`` is cut."""
+    if _hd_sharded(params, cfg):
+        out = out[..., shard_block(cfg.head_dim_, "model", mesh)]
+    y = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
+    if tuple(params["wo"].shape[:2]) != (cfg.n_heads, cfg.head_dim_):
+        y = all_reduce(y, mesh)
+    return y
+
+
+def _full_hd(kv, cfg: ModelConfig, mesh):
+    """A cache's K or V with the full head_dim (all-gathered when the
+    rank holds a block of it)."""
+    if kv.shape[-1] == cfg.head_dim_:
+        return kv
+    return all_gather(kv, mesh, "model", -1)
 
 
 def attention_full(params, x, positions, cfg: ModelConfig, *,
@@ -56,7 +97,7 @@ def attention_full(params, x, positions, cfg: ModelConfig, *,
                    prefix_kv: Optional[Dict[str, torch.Tensor]] = None,
                    prefix_positions: Optional[torch.Tensor] = None,
                    prefix_valid: Optional[torch.Tensor] = None,
-                   use_kernel: bool = True,
+                   use_kernel: bool = True, mesh=None,
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal (optionally sliding-window) self-attention over a full sequence.
 
@@ -72,17 +113,20 @@ def attention_full(params, x, positions, cfg: ModelConfig, *,
     ``use_kernel=False`` runs the plain ``attention_ref`` on any device, as
     the JAX package trains through plain XLA attention: the kernel has no
     backward.
+
+    ``mesh``: the params and ``prefix_kv`` are the rank's shards (module
+    docstring), and so are the returned K/V.
     """
     b, s, _ = x.shape
-    q, k, v = _project_qkv(params, x, positions, cfg)
+    q, k, v = _project_qkv(params, x, positions, cfg, mesh)
     qpos = positions.to(torch.int32).expand(b, s).contiguous()
     kpos = qpos
     kvalid = (valid.to(torch.bool) if valid is not None
               else torch.ones((b, s), dtype=torch.bool, device=x.device))
     if prefix_kv is not None:
         sp = prefix_kv["k"].shape[1]
-        k = torch.cat([prefix_kv["k"], k], dim=1)
-        v = torch.cat([prefix_kv["v"], v], dim=1)
+        k = torch.cat([_full_hd(prefix_kv["k"], cfg, mesh), k], dim=1)
+        v = torch.cat([_full_hd(prefix_kv["v"], cfg, mesh), v], dim=1)
         ppos = (prefix_positions.to(torch.int32) if prefix_positions is not None
                 else torch.arange(sp, dtype=torch.int32, device=x.device))
         kpos = torch.cat([ppos.expand(b, sp), kpos], dim=1)
@@ -93,8 +137,10 @@ def attention_full(params, x, positions, cfg: ModelConfig, *,
     out = attend(q.contiguous(), k.contiguous(), v.contiguous(), qpos,
                  kpos.contiguous(), kvalid.contiguous(),
                  window=cfg.sliding_window)
-    y = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
-    return y, {"k": k, "v": v}
+    if _hd_sharded(params, cfg):  # the cache keeps the rank's block
+        blk = shard_block(cfg.head_dim_, "model", mesh)
+        k, v = k[..., blk].contiguous(), v[..., blk].contiguous()
+    return _out_proj(params, out, cfg, mesh), {"k": k, "v": v}
 
 
 # ----------------------------------------------------------------------
@@ -149,7 +195,7 @@ def cache_from_prefill(kv: Dict[str, torch.Tensor], capacity: int,
 
 
 def attention_decode(params, x, pos, cache, cfg: ModelConfig, *,
-                     inplace: bool = False,
+                     inplace: bool = False, mesh=None,
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode step.
 
@@ -159,11 +205,15 @@ def attention_decode(params, x, pos, cache, cfg: ModelConfig, *,
     pos % W before the token attends, so it attends to itself. The
     caller's cache is left as it was unless ``inplace``, which writes into
     it (for a caller that owns the cache and discards the old one).
+    ``mesh``: the params and the cache are the rank's shards.
     """
     b = x.shape[0]
     w = cache["k"].shape[1]
     pos = pos.to(torch.int32)
-    q, k_new, v_new = _project_qkv(params, x, pos[:, None], cfg)
+    q, k_new, v_new = _project_qkv(params, x, pos[:, None], cfg, mesh)
+    if _hd_sharded(params, cfg):  # the cache holds the rank's block
+        blk = shard_block(cfg.head_dim_, "model", mesh)
+        k_new, v_new = k_new[..., blk], v_new[..., blk]
     slot = (pos % w).long()
     rows = torch.arange(b, device=x.device)
     stored = cache.get("valid")
@@ -178,6 +228,7 @@ def attention_decode(params, x, pos, cache, cfg: ModelConfig, *,
     # a device tensor, not the scalar True: a scalar value is a host copy,
     # which a CUDA graph capture refuses
     stored[rows, slot] = torch.ones_like(slot, dtype=torch.bool)
-    out = decode_attention(q.contiguous(), k, v, pos.contiguous(), stored)
-    y = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
-    return y, {"k": k, "v": v, "valid": stored}
+    out = decode_attention(q.contiguous(), _full_hd(k, cfg, mesh),
+                           _full_hd(v, cfg, mesh), pos.contiguous(), stored)
+    return _out_proj(params, out, cfg, mesh), {"k": k, "v": v,
+                                               "valid": stored}

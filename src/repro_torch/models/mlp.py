@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from repro_torch.models.common import scaled_init
+from repro_torch.sharding.local import all_reduce
 
 
 def init_mlp(gen, d_model: int, d_ff: int, dtype, device):
@@ -14,8 +15,14 @@ def init_mlp(gen, d_model: int, d_ff: int, dtype, device):
     }
 
 
-def mlp(params, x):
+def mlp(params, x, mesh=None, d_ff=None):
+    """On a mesh the rank holds a d_ff block of ``gate``/``up`` (columns)
+    and ``down`` (rows) when the block is smaller than ``d_ff``; its
+    partial output is then all-reduced over the model axis."""
     g = x @ params["gate"]
     u = x @ params["up"]
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ params["down"]
+    y = h @ params["down"]
+    if mesh is not None and params["down"].shape[0] != d_ff:
+        y = all_reduce(y, mesh)
+    return y

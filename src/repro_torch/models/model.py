@@ -18,6 +18,14 @@ cache), ``decode_step`` (one token against the decode caches), and the
 cache builders ``init_cache``, ``cache_shapes`` and ``cache_from_prefill``.
 Stacked leaves are allocated once at their (R, ...) shape and filled a
 repeat at a time, so no layer is held twice.
+
+Every entry point takes an optional ``mesh`` (a ("data", "model")
+``DeviceMesh``): the params and caches are then one rank's shards in the
+serving layout (``sharding/rules.py``), and the layers insert the
+collectives over the model axis that the layout implies (the embedding's
+d_model all-gathered, the attention, MLP, MoE and SSM outputs
+all-reduced, the vocab-sharded logits all-gathered). Without a mesh,
+or on a 1x1 one, the code path is the one-device path.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from repro_torch.models.common import normal_init
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.norms import init_rmsnorm, rmsnorm
+from repro_torch.sharding.local import all_gather, shard_tree
 
 NEG_INF = -1e30
 
@@ -95,13 +104,16 @@ def _set_slice(stacked, r: int, tree) -> None:
             stacked[k][r].copy_(v)
 
 
-def _stacked(make, R: int):
+def _stacked(make, R: int, keep=None):
     """The (R, ...) tree of ``make(0)``, ..., ``make(R - 1)``, called in
     order, each copied into its slice and dropped: what ``torch.stack``
-    of the list would give, without holding the list."""
+    of the list would give, without holding the list. ``keep`` maps each
+    made tree to what is kept of it (a rank's shards)."""
     out = None
     for r in range(R):
         tree = make(r)
+        if keep is not None:
+            tree = keep(tree)
         if out is None:
             out = _empty_stacked(tree, R)
         _set_slice(out, r, tree)
@@ -109,28 +121,52 @@ def _stacked(make, R: int):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
+                dtype=torch.bfloat16, device="cuda", mesh=None
+                ) -> Dict[str, Any]:
     """Random params with the JAX ``init_params``' paths, shapes and scales.
     The random bits are torch's, not ``jax.random``'s: each repeat's layer
     is drawn in turn (f32 draws, one leaf at a time) into its slice of the
-    stacked leaves, which are allocated once in ``dtype`` on ``device``."""
+    stacked leaves, which are allocated once in ``dtype`` on ``device``.
+
+    With a ``mesh`` the result is this rank's shards in the serving layout
+    (``sharding.rules.serving_param_pspecs``): every layer is still drawn
+    whole, in the same order from the same generator, and only the rank's
+    block of it is kept, so the shards are bit for bit the blocks of the
+    unsharded init, and no more than one layer is ever whole."""
     pat = pattern_sig(cfg)
     R = cfg.n_layers // len(pat)
+    specs = None
+    if mesh is not None:
+        from repro_torch.sharding.rules import serving_param_pspecs
+        specs = serving_param_pspecs(cfg, mesh)
+
+    def keep(tree, spec):
+        return tree if spec is None else shard_tree(tree, spec, mesh)
+
+    def layer_spec(p):  # one repeat's specs: the leading R entry dropped
+        if specs is None:
+            return None
+        from repro_torch.sharding.rules import P, tree_map_specs
+        return tree_map_specs(lambda sp: P(*sp[1:]),
+                              specs["blocks"][f"pos{p}"])
+
     blocks = {f"pos{p}": _stacked(
         lambda r, kind=kind, mlp_kind=mlp_kind: _init_layer(
-            generator, cfg, kind, mlp_kind, dtype, device), R)
+            generator, cfg, kind, mlp_kind, dtype, device), R,
+        keep=None if specs is None else
+        (lambda tree, sp=layer_spec(p): keep(tree, sp)))
               for p, (kind, mlp_kind) in enumerate(pat)}
     params = {
-        "embed": {"table": normal_init(generator,
-                                       (cfg.vocab_padded, cfg.d_model),
-                                       cfg.d_model ** -0.5, dtype, device)},
+        "embed": keep({"table": normal_init(
+            generator, (cfg.vocab_padded, cfg.d_model), cfg.d_model ** -0.5,
+            dtype, device)}, specs and specs["embed"]),
         "blocks": blocks,
         "final_norm": init_rmsnorm(cfg.d_model, dtype, device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"table": normal_init(
+        params["lm_head"] = keep({"table": normal_init(
             generator, (cfg.vocab_padded, cfg.d_model), cfg.d_model ** -0.5,
-            dtype, device)}
+            dtype, device)}, specs and specs["lm_head"])
     return params
 
 
@@ -154,7 +190,7 @@ def _take(tree, r: int):
 
 def _layer(lp, x, positions, valid, cfg: ModelConfig, *, kind="attn",
            mlp_kind="dense", mode="forward", cache=None, prefix_valid=None,
-           inplace=False, use_kernels=True):
+           inplace=False, use_kernels=True, mesh=None):
     """One block. Returns (x, cache_out, aux): cache_out is for "prefill"
     and "extend" the layer's K/V (prefix + suffix) or its SSM tails and
     state, for "decode" its updated cache, None for "forward"; aux is the
@@ -162,33 +198,34 @@ def _layer(lp, x, positions, valid, cfg: ModelConfig, *, kind="attn",
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
     if kind == "attn" and mode == "decode":
         mix, cache_out = attn_mod.attention_decode(
-            lp["attn"], h, positions, cache, cfg, inplace=inplace)
+            lp["attn"], h, positions, cache, cfg, inplace=inplace, mesh=mesh)
     elif kind == "attn":
         mix, cache_out = attn_mod.attention_full(
             lp["attn"], h, positions, cfg, valid=valid,
             prefix_kv=cache if mode == "extend" else None,
-            prefix_valid=prefix_valid, use_kernel=use_kernels)
+            prefix_valid=prefix_valid, use_kernel=use_kernels, mesh=mesh)
     elif mode == "decode":
         mix, cache_out = ssm_mod.ssm_decode(lp["ssm"], h, cache, cfg,
-                                            inplace=inplace)
+                                            inplace=inplace, mesh=mesh)
     else:
         mix, cache_out = ssm_mod.ssm_forward(
             lp["ssm"], h, cfg, cache=cache if mode == "extend" else None,
-            valid=valid, use_kernel=use_kernels)
+            valid=valid, use_kernel=use_kernels, mesh=mesh)
     x = x + mix
     aux = None
     if mlp_kind == "dense":
-        x = x + mlp(lp["mlp"], rmsnorm(lp["norm2"], x, cfg.norm_eps))
+        x = x + mlp(lp["mlp"], rmsnorm(lp["norm2"], x, cfg.norm_eps), mesh,
+                    cfg.d_ff)
     elif mlp_kind == "moe":
         out, aux = moe_apply(lp["moe"], rmsnorm(lp["norm2"], x, cfg.norm_eps),
-                             cfg)
+                             cfg, mesh)
         x = x + out
     return x, (None if mode == "forward" else cache_out), aux
 
 
 def _run_stack(params, x, cfg: ModelConfig, *, mode, positions, valid=None,
                caches=None, prefix_valid=None, inplace=False,
-               use_kernels=True, remat=False):
+               use_kernels=True, remat=False, mesh=None):
     """The R x P blocks in order. Returns (x, caches_out, aux) with
     caches_out stacked over R like the JAX scan's output, or None for
     "forward", and aux the MoE load-balance losses summed over the layers
@@ -213,7 +250,7 @@ def _run_stack(params, x, cfg: ModelConfig, *, mode, positions, valid=None,
                 _layer, _take(params["blocks"][key], r), positions=positions,
                 valid=valid, cfg=cfg, kind=kind, mlp_kind=mlp_kind,
                 mode=mode, cache=cache, prefix_valid=prefix_valid,
-                inplace=inplace, use_kernels=use_kernels)
+                inplace=inplace, use_kernels=use_kernels, mesh=mesh)
             if remat and mode == "forward" and torch.is_grad_enabled():
                 x, c_out, aux = checkpoint(layer, x, use_reentrant=False)
             else:
@@ -230,10 +267,18 @@ def _run_stack(params, x, cfg: ModelConfig, *, mode, positions, valid=None,
     return x, (caches if own else outs), aux_sum
 
 
-def _logits(params, cfg: ModelConfig, x):
+def _logits(params, cfg: ModelConfig, x, mesh=None):
+    """Logits (B,S,Vp) f32 of the final hidden states. On a mesh a tied
+    table holding a d_model block is all-gathered first; an untied head
+    holding a vocab block gives the rank's vocab block of the logits,
+    which is all-gathered."""
     table = (params["embed"]["table"] if cfg.tie_embeddings
              else params["lm_head"]["table"])
+    if table.shape[1] != cfg.d_model:
+        table = all_gather(table, mesh, "model", 1)
     logits = torch.einsum("bsd,vd->bsv", x, table).float()
+    if logits.shape[-1] != cfg.vocab_padded:
+        logits = all_gather(logits, mesh, "model", -1)
     if cfg.vocab_padded != cfg.vocab_size:
         vmask = torch.arange(cfg.vocab_padded, device=x.device) \
             < cfg.vocab_size
@@ -241,10 +286,14 @@ def _logits(params, cfg: ModelConfig, x):
     return logits
 
 
-def _embed(params, tokens, prefix_embeds=None):
+def _embed(params, tokens, prefix_embeds=None, mesh=None, d_model=None):
     """Token embeddings (B,S,d), after ``prefix_embeds`` (B,Sp,d) cast to
-    the table's dtype when given."""
+    the table's dtype when given. On a mesh a table holding a block of
+    the ``d_model`` columns gathers its block, which is all-gathered over
+    the model axis."""
     x = params["embed"]["table"][tokens.long()]
+    if mesh is not None and x.shape[-1] != d_model:
+        x = all_gather(x, mesh, "model", -1)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return x
@@ -259,7 +308,8 @@ def _default_positions(tokens, prefix_embeds):
 
 def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
             positions=None, valid=None, last_only: bool = False,
-            use_kernels: bool = True, remat: bool = False) -> torch.Tensor:
+            use_kernels: bool = True, remat: bool = False,
+            mesh=None) -> torch.Tensor:
     """Logits (B, S, Vp) fp32, or (B, 1, Vp) of the last position alone
     with ``last_only`` (same values: norm and head are per position).
 
@@ -271,30 +321,32 @@ def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     recomputes each block in the backward pass."""
     return _forward(params, cfg, tokens, prefix_embeds=prefix_embeds,
                     positions=positions, valid=valid, last_only=last_only,
-                    use_kernels=use_kernels, remat=remat)[0]
+                    use_kernels=use_kernels, remat=remat, mesh=mesh)[0]
 
 
 def _forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
              positions=None, valid=None, last_only: bool = False,
-             use_kernels: bool = True, remat: bool = False):
+             use_kernels: bool = True, remat: bool = False, mesh=None):
     """``forward``'s (logits, MoE aux loss): the JAX ``forward``'s pair,
     which the training loss reads."""
     if positions is None:
         positions = _default_positions(tokens, prefix_embeds)
     if valid is not None:
         valid = valid.to(torch.bool)    # the training batches' are int32
-    x, _, aux = _run_stack(params, _embed(params, tokens, prefix_embeds),
+    x, _, aux = _run_stack(params, _embed(params, tokens, prefix_embeds,
+                                          mesh, cfg.d_model),
                            cfg, mode="forward", positions=positions,
-                           valid=valid, use_kernels=use_kernels, remat=remat)
+                           valid=valid, use_kernels=use_kernels, remat=remat,
+                           mesh=mesh)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
-    return _logits(params, cfg, x), aux
+    return _logits(params, cfg, x, mesh), aux
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
             positions=None, valid=None, logits_last_only: bool = False,
-            use_kernels: bool = True):
+            use_kernels: bool = True, mesh=None):
     """Full-sequence pass that also returns the per-layer caches. Returns
     (logits (B,S,Vp) fp32, or (B,1,Vp) with ``logits_last_only``; caches
     {"pos{p}": {"k", "v"}} each (R,B,S,nkv,hd) for attention, the SSM
@@ -303,17 +355,18 @@ def prefill(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     attention and SSD scan."""
     if positions is None:
         positions = _default_positions(tokens, prefix_embeds)
-    x, caches, _ = _run_stack(params, _embed(params, tokens, prefix_embeds),
+    x, caches, _ = _run_stack(params, _embed(params, tokens, prefix_embeds,
+                                             mesh, cfg.d_model),
                               cfg, mode="prefill", positions=positions,
-                              valid=valid, use_kernels=use_kernels)
+                              valid=valid, use_kernels=use_kernels, mesh=mesh)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_last_only:
         x = x[:, -1:]
-    return _logits(params, cfg, x), caches
+    return _logits(params, cfg, x, mesh), caches
 
 
 def extend(params, cfg: ModelConfig, caches, tokens, start_pos, *,
-           valid=None, prefix_valid=None):
+           valid=None, prefix_valid=None, mesh=None):
     """Incremental prefill, the paper's injection: run only the ``tokens``
     suffix (B,Ss) against a prefill cache. start_pos (B,) is each row's
     first suffix position; the prefix keys keep their slot indices as
@@ -321,25 +374,27 @@ def extend(params, cfg: ModelConfig, caches, tokens, start_pos, *,
     prefix + suffix)."""
     positions = start_pos.to(torch.int32)[:, None] + torch.arange(
         tokens.shape[1], dtype=torch.int32, device=tokens.device)[None, :]
-    x, caches_out, _ = _run_stack(params, _embed(params, tokens), cfg,
+    x, caches_out, _ = _run_stack(params, _embed(params, tokens, None, mesh,
+                                                 cfg.d_model), cfg,
                                   mode="extend", positions=positions,
                                   valid=valid, caches=caches,
-                                  prefix_valid=prefix_valid)
+                                  prefix_valid=prefix_valid, mesh=mesh)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x), caches_out
+    return _logits(params, cfg, x, mesh), caches_out
 
 
 def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
-                inplace: bool = False):
+                inplace: bool = False, mesh=None):
     """One-token serve step. tokens (B,1); pos (B,) int32, the number of
     tokens already in the cache (the new token's position). Returns
     (logits (B,1,Vp), updated ring caches). The caller's caches are left
     as they were unless ``inplace``."""
-    x, caches_out, _ = _run_stack(params, _embed(params, tokens), cfg,
+    x, caches_out, _ = _run_stack(params, _embed(params, tokens, None, mesh,
+                                                 cfg.d_model), cfg,
                                   mode="decode", positions=pos,
-                                  caches=caches, inplace=inplace)
+                                  caches=caches, inplace=inplace, mesh=mesh)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x), caches_out
+    return _logits(params, cfg, x, mesh), caches_out
 
 
 # ----------------------------------------------------------------------

@@ -20,10 +20,16 @@ The reference's semantics are kept exactly:
 - the combine weights are ``top_p / max(sum, 1e-9)`` in f32, cast to the
   activations' dtype before the sum over k; ``silu`` is taken in f32.
 
-The expert products are plain ``einsum``s, as in the reference. Expert
-parallelism and sharded expert weights come with the device mesh. Router
+The expert products are plain ``einsum``s, as in the reference. Router
 jitter is left out: the reference adds it only when given a key, and no
 caller of its model passes one.
+
+On a mesh (``moe_apply(..., mesh=)``) the router and the dispatch run on
+every rank alike (the router is replicated), so every rank drops the same
+tokens. The rank holds a block of the experts (expert parallelism, when
+the experts divide the model axis) or a d_ff block of every expert; it
+runs only that, and the combined output's partial sums are all-reduced
+over the model axis.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import scaled_init
+from repro_torch.sharding.local import all_reduce, shard_block
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device
@@ -52,9 +59,11 @@ def moe_capacity(seq: int, cfg: ModelConfig) -> int:
     return max(1, -(-int(seq * m.top_k * m.capacity_factor) // m.n_experts))
 
 
-def moe_apply(params, x: torch.Tensor, cfg: ModelConfig
+def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, mesh=None,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B,S,d) -> (out (B,S,d), load-balance aux loss, an f32 scalar)."""
+    """x (B,S,d) -> (out (B,S,d), load-balance aux loss, an f32 scalar).
+    ``mesh``: the expert weights are the rank's shards (module
+    docstring)."""
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.n_experts, m.top_k
@@ -90,10 +99,17 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig
     expert_in = buf[:, :e * c].reshape(b, e, c, d)
 
     # ---- per-expert SwiGLU -------------------------------------------
+    e_local = params["gate"].shape[0]
+    if e_local != e:  # expert parallelism: the rank's experts only
+        expert_in = expert_in[:, shard_block(e, "model", mesh)]
     g = torch.einsum("becd,edf->becf", expert_in, params["gate"])
     u = torch.einsum("becd,edf->becf", expert_in, params["up"])
     h = F.silu(g.float()).to(x.dtype) * u
     expert_out = torch.einsum("becf,efd->becd", h, params["down"])
+    if e_local != e:  # the other ranks' experts contribute zeros here
+        full = torch.zeros((b, e, c, d), dtype=x.dtype, device=x.device)
+        full[:, shard_block(e, "model", mesh)] = expert_out
+        expert_out = full
 
     # ---- gather back + combine ---------------------------------------
     flat = torch.cat([expert_out.reshape(b, e * c, d),
@@ -103,6 +119,8 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig
     y_flat = torch.zeros((b, sk, d), dtype=x.dtype, device=x.device)
     y_flat.scatter_(1, order[..., None].expand(b, sk, d), y_sorted)
     y = (y_flat.reshape(b, s, k, d) * top_w[..., None].to(x.dtype)).sum(2)
+    if e_local != e or params["down"].shape[1] != cfg.d_ff:
+        y = all_reduce(y, mesh)
 
     # ---- Switch-style load balance loss ------------------------------
     experts = torch.arange(e, device=x.device)

@@ -14,6 +14,16 @@ plain PyTorch, as in the JAX package, which has no kernel for it.
 Params and caches keep the JAX package's trees and layouts
 (``models/ssm.py`` there); ``A_log``, ``D`` and ``dt_bias`` stay f32 in a
 bf16 model, and the state is f32.
+
+On a mesh (``mesh=``) the rank holds a d_inner block of ``wz``, ``wx``,
+``conv_x``, ``norm_scale`` and ``out_proj`` and of the x conv tail, and a
+head block of ``wdt``, ``A_log``, ``D``, ``dt_bias`` and of the state,
+when those dims divide the model axis; ``wB``, ``wC`` and their convs are
+replicated. When the head block lines up with the d_inner block the scan
+runs on the rank's heads; when only d_inner is cut, x is all-gathered
+and the scan runs on every head, and the rank keeps its d_inner block of
+y. The gated norm's mean square over all of d_inner is all-reduced before
+its rsqrt, and so are ``out_proj``'s partial sums.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 from repro_torch.models.common import normal_init, scaled_init
+from repro_torch.sharding.local import all_gather, all_reduce, shard_block
 
 
 def init_ssm(gen, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
@@ -106,11 +117,39 @@ def ssd_decode_step(x, dt, A, B, C, D, state, *, inplace: bool = False):
     return y.to(x.dtype), new_state
 
 
-def _gated_norm(y, z, scale, eps):
-    """Mamba2 gated RMSNorm: rmsnorm(y * silu(z)) * scale, in f32."""
+def _gated_norm(y, z, scale, eps, mesh=None, d_inner=None):
+    """Mamba2 gated RMSNorm: rmsnorm(y * silu(z)) * scale, in f32. On a
+    mesh, with y and z the rank's block of ``d_inner`` channels, the sum
+    of squares is all-reduced over the model axis."""
     g = y.float() * F.silu(z.float())
-    var = (g * g).mean(-1, keepdim=True)
+    if mesh is not None and g.shape[-1] != d_inner:
+        var = all_reduce((g * g).sum(-1, keepdim=True), mesh) / d_inner
+    else:
+        var = (g * g).mean(-1, keepdim=True)
     return g * torch.rsqrt(var + eps) * scale.float()
+
+
+def _heads_of(params, cfg: ModelConfig, xr, mesh):
+    """(x for the scan, its heads, a function from the scan's y to the
+    rank's d_inner block). Without a cut, or when the rank's heads line
+    up with its d_inner block, x is the rank's own; when only d_inner is
+    cut, x is all-gathered to every head and y is cut back."""
+    din_local = params["wz"].shape[-1]
+    nh_local = params["wdt"].shape[-1]
+    if din_local == nh_local * cfg.ssm.head_dim:
+        return xr, nh_local, lambda y: y
+    blk = shard_block(cfg.d_inner, "model", mesh)
+    return (all_gather(xr, mesh, "model", -1), cfg.n_ssm_heads,
+            lambda y: y[..., blk])
+
+
+def _out(params, y, cfg: ModelConfig, mesh):
+    """``out_proj`` of the gated output, its partial sums all-reduced
+    when the rank holds a d_inner block of its rows."""
+    out = y @ params["out_proj"]
+    if params["out_proj"].shape[0] != cfg.d_inner:
+        out = all_reduce(out, mesh)
+    return out
 
 
 def _project(params, x):
@@ -119,7 +158,7 @@ def _project(params, x):
 
 
 def ssm_forward(params, x, cfg: ModelConfig, *, cache=None, valid=None,
-                use_kernel: bool = True,
+                use_kernel: bool = True, mesh=None,
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Full-sequence Mamba2 mixer. x (B,S,d) -> (y (B,S,d), cache).
 
@@ -134,10 +173,13 @@ def ssm_forward(params, x, cfg: ModelConfig, *, cache=None, valid=None,
 
     ``use_kernel=False`` runs the plain ``ssd_chunked`` on any device (the
     training path: the kernel has no backward).
+
+    ``mesh``: the params and ``cache`` are the rank's shards (module
+    docstring), and so is the returned cache.
     """
     s_cfg = cfg.ssm
     b, s, _ = x.shape
-    nh, hp = cfg.n_ssm_heads, s_cfg.head_dim
+    hp = s_cfg.head_dim
 
     z, xr, Br, Cr, dt = _project(params, x)
     if valid is not None:
@@ -157,6 +199,7 @@ def ssm_forward(params, x, cfg: ModelConfig, *, cache=None, valid=None,
     if valid is not None:
         dt = dt * valid[..., None].float()               # identity steps
     A = -torch.exp(params["A_log"])
+    xr, nh, own = _heads_of(params, cfg, xr, mesh)
     scan = ssd_scan if use_kernel else ssd_chunked
     y, h_final = scan(xr.reshape(b, s, nh, hp).contiguous(),
                       dt.contiguous(), A.contiguous(), Br.contiguous(),
@@ -164,22 +207,22 @@ def ssm_forward(params, x, cfg: ModelConfig, *, cache=None, valid=None,
                       chunk=min(s_cfg.chunk_size, s),
                       init_state=tails.get("state"))
 
-    y = _gated_norm(y.reshape(b, s, -1), z, params["norm_scale"],
-                    cfg.norm_eps).to(x.dtype)
-    out = y @ params["out_proj"]
-    return out, {"conv_x": tail_x, "conv_B": tail_B, "conv_C": tail_C,
-                 "state": h_final}
+    y = _gated_norm(own(y.reshape(b, s, -1)), z, params["norm_scale"],
+                    cfg.norm_eps, mesh, cfg.d_inner).to(x.dtype)
+    return _out(params, y, cfg, mesh), {"conv_x": tail_x, "conv_B": tail_B,
+                                        "conv_C": tail_C, "state": h_final}
 
 
 def ssm_decode(params, x, cache, cfg: ModelConfig, *, inplace: bool = False,
-               ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+               mesh=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One-token decode. x (B,1,d); cache from ``ssm_forward`` or
     ``init_ssm_cache``. The caller's cache is left as it was unless
     ``inplace``, which writes the new tails and state into its tensors
-    and returns them."""
+    and returns them. ``mesh``: the params and the cache are the rank's
+    shards."""
     s_cfg = cfg.ssm
     b = x.shape[0]
-    nh, hp = cfg.n_ssm_heads, s_cfg.head_dim
+    hp = s_cfg.head_dim
     z, xr, Br, Cr, dt = _project(params, x[:, 0])
 
     def conv_step(tail, new, w, bias):
@@ -197,13 +240,14 @@ def ssm_decode(params, x, cache, cfg: ModelConfig, *, inplace: bool = False,
 
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
+    xr, nh, own = _heads_of(params, cfg, xr, mesh)
     y, new_state = ssd_decode_step(xr.reshape(b, nh, hp), dt, A, Br, Cr,
                                    params["D"], cache["state"],
                                    inplace=inplace)
 
-    y = _gated_norm(y.reshape(b, -1), z, params["norm_scale"],
-                    cfg.norm_eps).to(x.dtype)
-    out = (y @ params["out_proj"])[:, None, :]
+    y = _gated_norm(own(y.reshape(b, -1)), z, params["norm_scale"],
+                    cfg.norm_eps, mesh, cfg.d_inner).to(x.dtype)
+    out = _out(params, y, cfg, mesh)[:, None, :]
     tails = {"conv_x": tail_x, "conv_B": tail_B, "conv_C": tail_C}
     if inplace:
         for name, t in tails.items():

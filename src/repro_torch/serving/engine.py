@@ -1,4 +1,5 @@
-"""Serving engine — the paper's injection as cache operations, on one device.
+"""Serving engine — the paper's injection as cache operations, on one device
+or on a device mesh.
 
 The batch features correspond to a cached model state (per-layer K/V)
 that the daily job can materialise; injecting fresh events runs only the
@@ -26,9 +27,24 @@ and the ring buffers by address, so ``apply_patch`` copies new values
 into the engine's tensors instead of rebinding them, and a warm graph
 serves the patched weights.
 
-Against the JAX package's engine: no device mesh and no query chunking
-(the attention kernel streams keys, so ``ServingConfig`` has no
-``q_chunk``).
+**Sharded serving.** Pass a ("data", "model") ``DeviceMesh``
+(``launch/mesh.py``): the engine resolves ``serving_pspecs`` once
+(raising its ``ValueError`` for a ``max_batch`` the data size does not
+divide) and keeps the rank's shards of the params, cut by that layout
+(TP over ``model``, replicated over ``data``; params that are already the
+rank's shards are taken as they are). Every rank runs the same calls
+(SPMD). Entry points take the full pane, or the rank's rows of it, and
+compute the rank's ``max_batch / data`` rows; the states they return hold
+the rank's rows. What leaves for the host is all-gathered over ``data``:
+``decode_slate``'s slate, and through ``full_rows``/``full_pane`` the
+logits and the prefill states that the host LRU and the pool keep. The
+model collectives run inside the model functions (``models/model.py``).
+On a mesh with more than one ``model`` rank ``decode_slate`` runs its
+eager loop: that is decided here, at construction (``graph_slates``),
+because a captured graph would hold the model axis's collectives.
+
+Against the JAX package's engine: no query chunking (the attention
+kernel streams keys, so ``ServingConfig`` has no ``q_chunk``).
 """
 from __future__ import annotations
 
@@ -44,7 +60,10 @@ from repro_torch.kernels import launch_counters
 from repro_torch.models.common import flatten_with_keystr, resolve_device
 from repro_torch.models.common import tree_map as _tree_map
 from repro_torch.models.model import (cache_from_prefill, decode_step, extend,
-                                      prefill)
+                                      param_shapes, prefill)
+from repro_torch.sharding.local import (axis_rank, gather_rows, group_size,
+                                        local_shard, shard_factor,
+                                        warm_groups)
 from repro_torch.weights import as_tensor
 
 NEG_INF = -1e30
@@ -74,24 +93,59 @@ def _leaves(tree):
             yield v
 
 
+def _by_keystr(tree, prefix: str = "") -> Dict[str, Any]:
+    """{keystr path: leaf} of a nested dict whose leaves may be tuples
+    (shapes, specs): ``flatten_with_keystr``'s paths, dicts only."""
+    out: Dict[str, Any] = {}
+    for k in sorted(tree):
+        path = f"{prefix}[{k!r}]"
+        if isinstance(tree[k], dict):
+            out.update(_by_keystr(tree[k], path))
+        else:
+            out[path] = tree[k]
+    return out
+
+
 class ServingEngine:
-    """The token-level serving path of one dense ranker on one device.
+    """The token-level serving path of one ranker, on one device or on a
+    rank of a device mesh.
 
     ``params`` is the ranker's param tree (``models.model.init_params`` or
     ``weights.params_from_numpy``); the engine serves copies of it on
     ``device`` (``apply_patch`` writes into them, never into the caller's
     tensors), which defaults to the CUDA device and must exist unless
-    ``device="cpu"``."""
+    ``device="cpu"``. With a ``mesh`` each leaf may be whole or already
+    this rank's shard; the engine keeps the shard (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
-                 scfg: ServingConfig, device="cuda"):
+                 scfg: ServingConfig, device="cuda", mesh=None):
         self.cfg = cfg
         self.scfg = scfg
         self.device = resolve_device(device)
-        self.params = _tree_map(lambda x: x.to(self.device, copy=True),
-                                params)
-        # one device: a pane is one shard (the Gateway's per-shard bytes)
-        self.data_shards = 1
+        self.mesh = mesh
+        if mesh is None:
+            self.params = _tree_map(lambda x: x.to(self.device, copy=True),
+                                    params)
+            # one device: a pane is one shard (the Gateway's per-shard bytes)
+            self.data_shards = 1
+        else:
+            from repro_torch.sharding.rules import (serving_pspecs,
+                                                    slot_pool_pspecs)
+            self._specs = serving_pspecs(cfg, mesh, scfg.max_batch)
+            self.data_shards = self._specs.data_shards
+            self._full_shapes = _by_keystr(param_shapes(cfg))
+            self._spec_of = _by_keystr(self._specs.params)
+            self.params = self._place(params)
+            # the blocks each cache leaf is cut into over ``model``: a
+            # state's bytes as one device would hold them
+            self._cache_factors = {
+                k: {n: shard_factor(sp, mesh) for n, sp in v.items()}
+                for k, v in slot_pool_pspecs(cfg, mesh).caches.items()}
+            warm_groups(mesh, self.device)
+        # the slate runs as a captured CUDA graph, but not where the graph
+        # would hold the model axis's collectives: there the eager loop
+        self.graph_slates = (self.device.type == "cuda"
+                             and group_size(mesh, "model") == 1)
         self._slate_buffers: Dict[Tuple[int, ...], _SlateBuffers] = {}
         self._slate_graphs: Dict[Tuple[int, Tuple[int, ...]],
                                  _SlateGraph] = {}
@@ -103,6 +157,91 @@ class ServingEngine:
         if isinstance(x, np.ndarray) and not x.flags.writeable:
             x = x.copy()  # torch takes no read-only numpy buffers
         return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    # ------------------------------------------------------------------
+    # The mesh: shards and the rank's rows
+    # ------------------------------------------------------------------
+    def _place(self, params) -> Dict[str, Any]:
+        """Copies on the device of the rank's shards of ``params``, whose
+        leaves are whole or already the rank's shards."""
+        def place(path, x):
+            spec, full = self._spec_of[path], self._full_shapes[path]
+            if tuple(x.shape) == tuple(full):
+                x = local_shard(x, spec, self.mesh)
+            elif tuple(x.shape) != _local_shape(full, spec, self.mesh):
+                raise ValueError(
+                    f"param {path}: shape {tuple(x.shape)} is neither "
+                    f"{tuple(full)} nor its shard "
+                    f"{_local_shape(full, spec, self.mesh)}")
+            return x.to(self.device, copy=True)
+        return _map_keystr(place, params)
+
+    def row_block(self) -> slice:
+        """The rows of a pane that this rank computes (every row without a
+        mesh)."""
+        if self.data_shards == 1:
+            return slice(None)
+        n = self.scfg.max_batch // self.data_shards
+        r = axis_rank(self.mesh, "data")
+        return slice(r * n, (r + 1) * n)
+
+    def _rows(self, x, dim: int = 0):
+        """The rank's rows of ``x`` (numpy or a tensor) along ``dim``: its
+        block of a full pane, or ``x`` when it holds just those rows."""
+        if x is None or self.data_shards == 1:
+            return x
+        b = self.scfg.max_batch
+        n = x.shape[dim]
+        if n == b:
+            return x[(slice(None),) * dim + (self.row_block(),)]
+        if n == b // self.data_shards:
+            return x
+        raise ValueError(f"a pane of {n} rows: want {b} (the full pane) or "
+                         f"{b // self.data_shards} (this rank's)")
+
+    def full_rows(self, x, dim: int = 0):
+        """``x`` with every row of the pane: the rank's rows all-gathered
+        over ``data``, or ``x`` when it holds them all already."""
+        if x is None or self.data_shards == 1 or \
+                x.shape[dim] == self.scfg.max_batch:
+            return x
+        return gather_rows(self._rows(x, dim), self.mesh, dim)
+
+    def _each_row_leaf(self, fn, state: Dict[str, Any]) -> Dict[str, Any]:
+        """``fn(leaf, dim)`` over a state's per-row leaves: the cache
+        leaves (rows on dim 1) and every other tensor (rows on dim 0)."""
+        return {k: (_tree_map(lambda x: fn(x, 1), v) if k == "caches"
+                    else v if v is None else fn(v, 0))
+                for k, v in state.items()}
+
+    def _local(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        if self.data_shards == 1:
+            return state
+        return self._each_row_leaf(self._rows, state)
+
+    def full_pane(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """A state with every row of the pane (``full_rows`` of each
+        per-row leaf): what the host LRU and the pool keep."""
+        if self.data_shards == 1:
+            return state
+        return self._each_row_leaf(self.full_rows, state)
+
+    def logical_nbytes(self, state: Dict[str, Any]) -> int:
+        """The bytes of a state's leaves as one device would hold them:
+        each cache leaf's bytes times the blocks its model dims are cut
+        into, the other leaves as they are (the host LRU's and the pool's
+        byte accounting, equal across meshes)."""
+        total = 0
+        for k, v in state.items():
+            if k == "caches":
+                if self.mesh is None:
+                    total += sum(x.nbytes for x in _leaves(v))
+                else:
+                    total += sum(_leaves(_tree_map(
+                        lambda x, f: x.nbytes * f, v, self._cache_factors)))
+            elif hasattr(v, "nbytes"):
+                total += v.nbytes
+        return total
 
     # ------------------------------------------------------------------
     def prefill_state_shapes(self) -> Tuple[ShapeDtype, Dict[str, Any]]:
@@ -117,8 +256,9 @@ class ServingEngine:
         what prefill produces, and the batch and sequence sizes are put
         back in."""
         b, p = self.scfg.max_batch, self.scfg.prefill_len
-        state = self.prefill(np.zeros((1, p), np.int32),
-                             np.ones((1, p), bool), logits_last_only=True)
+        state = self._prefill(self._tensor(np.zeros((1, p), np.int32)),
+                              self._tensor(np.ones((1, p), bool)),
+                              logits_last_only=True)
         logits = state["logits"]
         caches = _tree_map(lambda x: ShapeDtype(
             (x.shape[0], b) + tuple(x.shape[2:]), x.dtype), state["caches"])
@@ -168,11 +308,17 @@ class ServingEngine:
         later inject and decode positions continue at the buffer length.
         ``logits`` are the full (B, S, Vp) f32 logits, as in the JAX
         package, or only the last position's (B, 1, Vp) with
-        ``logits_last_only``; callers read ``[:, -1]`` either way."""
-        tokens = self._tensor(tokens, torch.int32)
-        valid = self._tensor(valid, torch.bool)
+        ``logits_last_only``; callers read ``[:, -1]`` either way. On a
+        mesh the state holds the rank's rows."""
+        return self._prefill(self._tensor(self._rows(tokens), torch.int32),
+                             self._tensor(self._rows(valid), torch.bool),
+                             logits_last_only)
+
+    def _prefill(self, tokens, valid, logits_last_only: bool
+                 ) -> Dict[str, Any]:
         logits, caches = prefill(self.params, self.cfg, tokens, valid=valid,
-                                 logits_last_only=logits_last_only)
+                                 logits_last_only=logits_last_only,
+                                 mesh=self.mesh)
         b, s = tokens.shape
         return {"caches": caches, "valid": valid,
                 # right-aligned prefill: every row's next position is S
@@ -192,14 +338,16 @@ class ServingEngine:
         real event; clamped to position 0 for an empty row, whose value is
         meaningless). With ``fallback_logits`` (B, Vp), the pre-inject
         scores, the result also carries ``first_logits``: last-valid scores
-        for rows with a real suffix, the fallback for empty rows."""
-        tokens = self._tensor(suffix_tokens, torch.int32)
-        valid = self._tensor(suffix_valid, torch.bool)
+        for rows with a real suffix, the fallback for empty rows. On a mesh
+        the result holds the rank's rows."""
+        state = self._local(state)
+        tokens = self._tensor(self._rows(suffix_tokens), torch.int32)
+        valid = self._tensor(self._rows(suffix_valid), torch.bool)
         prefix_valid = state["valid"]
         start = state["next_pos"]
         logits, caches = extend(self.params, self.cfg, state["caches"],
                                 tokens, start, valid=valid,
-                                prefix_valid=prefix_valid)
+                                prefix_valid=prefix_valid, mesh=self.mesh)
         n_valid = valid.sum(-1).to(torch.int32)
         rows = torch.arange(tokens.shape[0], device=self.device)
         last_valid = logits[rows, (n_valid - 1).clamp_min(0).long()]
@@ -211,7 +359,8 @@ class ServingEngine:
             "last_valid_logits": last_valid,
         }
         if fallback_logits is not None:
-            fallback = self._tensor(fallback_logits, torch.float32)
+            fallback = self._tensor(self._rows(fallback_logits),
+                                    torch.float32)
             out["first_logits"] = torch.where((n_valid > 0)[:, None],
                                               last_valid, fallback)
         return out
@@ -219,6 +368,7 @@ class ServingEngine:
     @torch.no_grad()
     def finalize(self, state: Dict[str, Any]) -> Dict[str, Any]:
         """Sequence-form state -> fixed-capacity ring cache for decode."""
+        state = self._local(state)
         caches = cache_from_prefill(self.cfg, state["caches"],
                                     self.scfg.cache_capacity,
                                     valid=state["valid"])
@@ -228,10 +378,13 @@ class ServingEngine:
     def decode(self, dec: Dict[str, Any], tokens,
                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One serve step: tokens (B,1) -> (logits (B,Vp), updated dec).
-        ``dec``'s own cache is left as it was."""
+        ``dec``'s own cache is left as it was. On a mesh the logits and
+        ``dec`` hold the rank's rows."""
+        dec = self._local(dec)
         logits, caches = decode_step(self.params, self.cfg, dec["caches"],
-                                     self._tensor(tokens, torch.int32),
-                                     dec["pos"])
+                                     self._tensor(self._rows(tokens),
+                                                  torch.int32),
+                                     dec["pos"], mesh=self.mesh)
         return logits[:, 0], {"caches": caches, "pos": dec["pos"] + 1}
 
     @torch.no_grad()
@@ -256,12 +409,17 @@ class ServingEngine:
         ``row_lens`` (B,) gives per-request slate lengths in one pane: the
         pane decodes ``slate_len`` steps and a row's slots at
         ``>= row_lens[row]`` are -1. Greedy decode is prefix-stable, so a
-        row's first k items are the k-slate it would get alone."""
+        row's first k items are the k-slate it would get alone.
+
+        On a mesh the rank decodes its rows and the slate is all-gathered
+        over ``data``: every rank returns the whole pane's. The graph is
+        used only where ``graph_slates`` (no model-axis collectives)."""
         self._check_greedy()
-        if self.device.type != "cuda":
+        if not self.graph_slates:
             return self._decode_slate_loop(state, first_logits, slate_len,
                                            row_lens)
-        first = self._tensor(first_logits, torch.float32)
+        state = self._local(state)
+        first = self._tensor(self._rows(first_logits), torch.float32)
         # cfg, scfg and the params fix every ring shape and dtype but the
         # batch, which is first's
         shape = tuple(first.shape)
@@ -274,7 +432,8 @@ class ServingEngine:
             graph = self._slate_graphs[(slate_len, shape)] = _SlateGraph(
                 self, bufs, slate_len)
         bufs.load(state, first)
-        return _mask_tail(graph.replay(), row_lens)
+        slate = self.full_rows(graph.replay())
+        return _mask_tail(slate.cpu().numpy(), row_lens)
 
     def slate_graph_stats(self) -> Dict[Tuple[int, Tuple[int, ...]],
                                         SlateGraphStats]:
@@ -289,13 +448,15 @@ class ServingEngine:
     def _decode_slate_loop(self, state: Dict[str, Any], first_logits,
                            slate_len: int, row_lens=None) -> np.ndarray:
         """``decode_slate`` as an eager loop of the same steps: the CPU
-        path, and on the card the graph's parity and timing reference."""
+        path, the path of a mesh with model-axis collectives, and on the
+        card the graph's parity and timing reference."""
         self._check_greedy()
         dec = self.finalize(state)
         slate = self._slate_body(dec["caches"], dec["pos"],
-                                 self._tensor(first_logits, torch.float32),
+                                 self._tensor(self._rows(first_logits),
+                                              torch.float32),
                                  slate_len)
-        return _mask_tail(slate.cpu().numpy(), row_lens)
+        return _mask_tail(self.full_rows(slate).cpu().numpy(), row_lens)
 
     def _check_greedy(self) -> None:
         if self.scfg.temperature > 0:
@@ -326,7 +487,8 @@ class ServingEngine:
             tok, mask = pick(logits, mask)
             picks.append(tok)
             nxt, caches = decode_step(self.params, self.cfg, caches,
-                                      tok[:, None], pos, inplace=True)
+                                      tok[:, None], pos, inplace=True,
+                                      mesh=self.mesh)
             pos = pos + 1
             logits = nxt[:, 0]
         picks.append(pick(logits, mask)[0])
@@ -341,8 +503,12 @@ class ServingEngine:
         and ``U`` uniform on [tiny, 1). ``noise`` (B, Vp) is the gumbel
         term itself (a test passes ``jax.random.gumbel``'s draw); without
         it ``U`` comes from ``generator``, by default the engine's own,
-        seeded with 0 on the engine's device."""
-        logits = self._tensor(logits)
+        seeded with 0 on the engine's device. On a mesh ``logits`` and
+        ``noise`` may be the full pane or the rank's rows; the noise is
+        drawn for the full pane on every rank from the same generator and
+        the rank keeps its rows, so a draw is the same on any mesh. The
+        tokens are the rank's rows."""
+        logits = self._tensor(self._rows(logits))
         if self.scfg.temperature <= 0:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         if noise is None:
@@ -352,11 +518,13 @@ class ServingEngine:
                         device=self.device).manual_seed(0)
                 generator = self._generator
             tiny = torch.finfo(logits.dtype).tiny
-            u = torch.rand(logits.shape, generator=generator,
+            shape = logits.shape if self.data_shards == 1 else \
+                (self.scfg.max_batch,) + tuple(logits.shape[1:])
+            u = torch.rand(shape, generator=generator,
                            dtype=logits.dtype, device=self.device)
             u = (u * (1.0 - tiny) + tiny).clamp_min(tiny)
             noise = -torch.log(-torch.log(u))
-        noise = self._tensor(noise, logits.dtype)
+        noise = self._tensor(self._rows(noise), logits.dtype)
         return torch.argmax(noise + logits / self.scfg.temperature,
                             dim=-1).to(torch.int32)
 
@@ -375,7 +543,9 @@ class ServingEngine:
         parameters by address, so they serve the new weights, and no
         caller's tensor ever becomes the engine's. The caller
         (``Gateway.install_patch``) decides when the swap is safe (between
-        panes). Returns the number of leaves patched."""
+        panes). Returns the number of leaves patched. On a mesh the values
+        are whole leaves, checked against the whole shapes, and each rank
+        writes its shard."""
         if not leaves:
             return 0
         by_path = dict(flatten_with_keystr(self.params))
@@ -386,18 +556,35 @@ class ServingEngine:
                 raise KeyError(
                     f"patch leaf {key!r} is not in the parameter tree")
             new = as_tensor(val)
-            if tuple(new.shape) != tuple(old.shape):
+            full = (tuple(old.shape) if self.mesh is None
+                    else tuple(self._full_shapes[key]))
+            if tuple(new.shape) != full:
                 raise ValueError(
                     f"patch leaf {key!r}: shape {tuple(new.shape)} != "
-                    f"{tuple(old.shape)}")
+                    f"{full}")
             if new.dtype != old.dtype:
                 raise ValueError(
                     f"patch leaf {key!r}: dtype {_dtype_name(new.dtype)} != "
                     f"{_dtype_name(old.dtype)}")
+            if self.mesh is not None:
+                new = local_shard(new, self._spec_of[key], self.mesh)
             staged.append((old, new))
         for old, new in staged:
             old.copy_(new)
         return len(leaves)
+
+
+def _local_shape(full, spec, mesh) -> Tuple[int, ...]:
+    """The shape of a rank's shard of a ``full``-shaped leaf."""
+    return tuple(n // shard_factor((e,), mesh) if e is not None else n
+                 for n, e in zip(full, tuple(spec)
+                                 + (None,) * (len(full) - len(spec))))
+
+
+def _map_keystr(fn, tree, prefix: str = ""):
+    """``fn(keystr path, leaf)`` over a nested dict, keeping its shape."""
+    return {k: _map_keystr(fn, v, f"{prefix}[{k!r}]") if isinstance(v, dict)
+            else fn(f"{prefix}[{k!r}]", v) for k, v in tree.items()}
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -494,12 +681,14 @@ class _SlateGraph:
         self.capture_s = time.perf_counter() - t0
         self.replays = 0
 
-    def replay(self) -> np.ndarray:
+    def replay(self) -> torch.Tensor:
+        """Replay the slate; returns the graph's slate tensor, which the
+        next replay overwrites."""
         self.graph.replay()
         for op, n in self.captured.values():
             op.launches += n
         self.replays += 1
-        return self.slate.cpu().numpy()
+        return self.slate
 
 
 # ----------------------------------------------------------------------

@@ -33,9 +33,15 @@ fixed bytes), and the same counter/rekey surface as the host
 ``rekey_generation`` renames slot-table keys and **never touches the
 device tensors**.
 
-Against the JAX package's pool: one device, no mesh, so no one-hot
-contractions (the JAX package needs them only to keep a partitioned pool
-from being all-gathered).
+On a device mesh the pool is laid out by ``slot_pool_pspecs``: the slot
+axis is replicated over ``data`` (every rank holds every slot) and the
+model dims are the rank's shards, as in ``seq_cache_pspecs``. ``gather``
+reads only the rank's rows of the pane from its own copy, with no
+collective; ``scatter`` all-gathers the prefill pane over ``data`` first
+and writes every row into every rank's copy. ``slot_nbytes`` counts a
+slot as one device would hold it (``ServingEngine.logical_nbytes``), so
+``stats()`` is the same on every mesh. The JAX package does the same
+with one-hot contractions; indexed copies need none.
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ from typing import Any, Dict, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from repro_torch.serving.engine import ServingEngine, _leaves, _tree_map
+from repro_torch.serving.engine import ServingEngine, _tree_map
 
 
 # ----------------------------------------------------------------------
@@ -86,9 +92,9 @@ class DeviceStatePool:
         self.valid = alloc((self.n_slots, p), torch.bool)
         self.next_pos = alloc((self.n_slots,), torch.int32)
         self.last_logits = alloc((self.n_slots, vp), logits_s.dtype)
-        self.slot_nbytes = sum(
-            x.nbytes for x in (*_leaves(self.caches), self.valid,
-                               self.next_pos, self.last_logits)
+        self.slot_nbytes = engine.logical_nbytes(
+            {"caches": self.caches, "valid": self.valid,
+             "next_pos": self.next_pos, "last_logits": self.last_logits}
         ) // self.n_slots
         self.gathers = 0
         self.scatters = 0
@@ -106,17 +112,19 @@ class DeviceStatePool:
         """Assemble a pane from slot ids (row ``i`` reads ``slots[i]``;
         short panes pad by repeating ``slots[0]``). Returns
         ``(state, last)``: a sequence-form engine state of new tensors
-        plus the per-row pre-inject next-item logits."""
+        plus the per-row pre-inject next-item logits. On a mesh ``state``
+        holds the rank's rows of the pane and ``last`` every row."""
         b = self.engine.scfg.max_batch
         if not slots:
             raise ValueError("gather of an empty pane")
-        idx = self._index(list(slots) + [slots[0]] * (b - len(slots)))
+        pane = list(slots) + [slots[0]] * (b - len(slots))
+        idx = self._index(pane[self.engine.row_block()])
         state = {"caches": _tree_map(lambda x: x.index_select(1, idx),
                                      self.caches),
                  "valid": self.valid.index_select(0, idx),
                  "next_pos": self.next_pos.index_select(0, idx),
                  "logits": None}
-        last = self.last_logits.index_select(0, idx)
+        last = self.last_logits.index_select(0, self._index(pane))
         self.gathers += 1
         return state, last
 
@@ -125,7 +133,9 @@ class DeviceStatePool:
         trailing pad rows of the pane are simply not listed; the slots
         are distinct). In place. The slot keeps the prefill's LAST
         position logits — the next-item scores when a request carries no
-        fresh suffix."""
+        fresh suffix. On a mesh the pane is all-gathered over ``data``
+        first."""
+        state = self.engine.full_pane(state)
         idx = self._index(slots)
         n = len(slots)
         _tree_map(lambda pool, rows: pool.index_copy_(1, idx, rows[:, :n]),
@@ -194,8 +204,9 @@ class PagedStateCache:
 
     @property
     def bytes_per_shard(self) -> int:
-        """Resident entry bytes: entries × slot size (one device, one
-        shard)."""
+        """Resident entry bytes: entries × slot size. The slot axis is
+        replicated over the data axes, so per shard is the per-slot total
+        (unlike the host LRU, whose pane rows shard over ``data``)."""
         return len(self._entries) * self.pool.slot_nbytes
 
     # ------------------------------------------------------------------

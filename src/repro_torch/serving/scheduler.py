@@ -516,6 +516,16 @@ class Gateway:
     The engine owns all placement: the gateway only ever builds
     fixed-shape ``max_batch`` panes and hands them to the engine's
     device, so the scheduling code has no device branches at all.
+
+    On a device mesh every rank runs the same Gateway (same seed, same
+    operations, in the same order: SPMD), so a hit on one rank is a hit on
+    every rank and every rank issues the same collectives. The host LRU
+    holds every row on every rank (each row's model dims are the rank's
+    shards), and its bytes are counted as one device would hold them
+    (``ServingEngine.logical_nbytes``) and divided by the data shards,
+    ``ceil(nbytes / shards)``, as the JAX package counts its data-sharded
+    panes; so every non-wall-clock ``stats()`` counter is the JAX
+    Gateway's on the same mesh.
     """
 
     def __init__(self, engine: ServingEngine, injector: FeatureInjector,
@@ -541,6 +551,8 @@ class Gateway:
             self.cache = PrefillStateCache(cfg.cache_entries,
                                            byte_budget=cfg.cache_bytes,
                                            shards=engine.data_shards)
+            if engine.mesh is not None:
+                self.cache.entry_nbytes = engine.logical_nbytes
         # the cache-key generation is COMPOSITE: (snapshot cutoff,
         # model version). Both caches compare keys only by equality, so
         # a weight-patch install invalidates exactly like a snapshot
@@ -1387,7 +1399,8 @@ class Gateway:
             else:
                 entries, hit_flags = self._lookup_or_admit(
                     ereqs, epol, cacheable, gen, now)
-                state = _cat_rows(entries, eng.scfg.max_batch, eng.device)
+                state = _cat_rows(entries, eng.scfg.max_batch, eng.device,
+                                  eng.row_block())
                 last = _join([e["last_logits"] for e in _pad_list(
                     entries, eng.scfg.max_batch)], 0, eng.device, stack=True)
             if any(suffix):
@@ -1406,7 +1419,7 @@ class Gateway:
                      for h, s in zip(hit_flags, suffix)]
 
         slate, _ = self._decode(state, first, elens)
-        scores = first.to(torch.float32).cpu().numpy()
+        scores = eng.full_rows(first).to(torch.float32).cpu().numpy()
         for j, i in enumerate(rows):
             row_slate[i] = slate[j, :elens[j]].copy()
             row_scores[i] = scores[j].copy()
@@ -1499,7 +1512,8 @@ class Gateway:
             reqs, policies, cacheable, gen, self.cache.get)
         if miss_rows:
             state = self._prefill_rows(reqs, policies, miss_rows, now)
-            host = _host_state(state)  # one device→host sync per leaf
+            # one device→host sync per leaf, of every row on a mesh
+            host = _host_state(self.engine.full_pane(state))
             for j, (key, i) in enumerate(zip(miss_keys, miss_rows)):
                 entry = _slice_row(host, j)
                 if cacheable[i]:
@@ -1812,11 +1826,13 @@ def _join(xs: Sequence[torch.Tensor], dim: int, device: torch.device,
 
 
 def _cat_rows(entries: List[Dict[str, Any]], b: int,
-              device: torch.device) -> Dict[str, Any]:
+              device: torch.device, block: slice = slice(None),
+              ) -> Dict[str, Any]:
     """Assemble per-user entries into one max_batch engine state on
     ``device`` (short panes padded by repeating row 0; padding rows are
-    discarded later). Every leaf is a new tensor."""
-    rows = _pad_list(entries, b)
+    discarded later), or the ``block`` of its rows that a mesh rank
+    computes. Every leaf is a new tensor."""
+    rows = _pad_list(entries, b)[block]
     return {
         "caches": _tree_map(lambda *xs: _join(xs, 1, device),
                             *[e["caches"] for e in rows]),

@@ -18,6 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import resolve_device
 from repro_torch.models.model import init_params
+from repro_torch.sharding.local import local_shard
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
@@ -45,28 +46,38 @@ def as_tensor(x) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
-                      dtype=None) -> Dict[str, Any]:
+                      dtype=None, mesh=None) -> Dict[str, Any]:
     """The port's param tree from a numpy copy of the JAX one, on ``device``,
     cast when ``dtype`` is given to the leaf types of a ``dtype`` model.
-    Raises if a path or shape differs from ``cfg``'s."""
+    Raises if a path or shape differs from ``cfg``'s. With a ``mesh`` each
+    leaf is cut to this rank's block of the serving layout on the host,
+    before it moves, so no device ever holds a whole sharded leaf."""
     device = resolve_device(device)
+    specs = None
+    if mesh is not None:
+        from repro_torch.sharding.rules import serving_param_pspecs
+        specs = serving_param_pspecs(cfg, mesh)
 
-    def convert(got, want, path):
+    def convert(got, want, path, spec):
         if not isinstance(got, dict) or set(got) != set(want):
             have = sorted(got) if isinstance(got, dict) else type(got)
             raise ValueError(f"params{path}: {have} != keys {sorted(want)}")
         out = {}
         for k, w in want.items():
+            sub = None if spec is None else spec[k]
             if isinstance(w, dict):
-                out[k] = convert(got[k], w, f"{path}/{k}")
+                out[k] = convert(got[k], w, f"{path}/{k}", sub)
                 continue
             arr = np.asarray(got[k])
             if arr.shape != w.shape:
                 raise ValueError(
                     f"params{path}/{k}: shape {arr.shape} != {tuple(w.shape)}")
-            out[k] = _tensor(arr).to(device=device,
-                                     dtype=None if dtype is None else w.dtype)
+            t = _tensor(arr)
+            if sub is not None:
+                t = local_shard(t, sub, mesh)
+            out[k] = t.to(device=device,
+                          dtype=None if dtype is None else w.dtype)
         return out
 
     like = init_params(cfg, torch.Generator(), dtype or torch.float32, "meta")
-    return convert(tree, like, "")
+    return convert(tree, like, "", specs)

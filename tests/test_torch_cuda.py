@@ -1002,3 +1002,68 @@ def test_donating_train_step_cuda_equals_functional(cuda):
         for (path, x), (_, y) in zip(flatten_with_keystr(a),
                                      flatten_with_keystr(b)):
             assert torch.equal(x, y), path
+
+
+@pytest.fixture
+def mesh_1x1(cuda):
+    """A 1x1 NCCL mesh in this process (a one-rank process group of its
+    own, destroyed after the test)."""
+    from repro_torch.launch.mesh import close_mesh, make_serving_mesh
+    try:
+        yield make_serving_mesh(1, 1, device="cuda")
+    finally:
+        close_mesh()
+
+
+@pytest.mark.parametrize("pool", [None, 16], ids=["lru", "pool"])
+def test_mesh_1x1_gateway_bitwise_equals_mesh_free(mesh_1x1, pool):
+    """The JAX equivalence tool's trace (``tools/torch_sharded_equiv_check``)
+    on the card: the Gateway on a 1x1 NCCL mesh serves every response and
+    counter of the mesh-free Gateway, bit for bit."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import torch_sharded_equiv_check as tool
+
+    want = tool.port_record(None, pool_slots=pool, device="cuda")
+    got = tool.port_record(mesh_1x1, pool_slots=pool, device="cuda")
+    for a, b in zip(want["waves"], got["waves"]):
+        np.testing.assert_array_equal(a["slates"], b["slates"])
+        np.testing.assert_array_equal(a["scores"], b["scores"])
+        assert a["hits"] == b["hits"]
+    assert want["stats"] == got["stats"]
+    assert want["rollover"] == got["rollover"]
+
+
+def test_mesh_1x1_engine_slate_graph(mesh_1x1):
+    """A 1x1 mesh's engine on the card captures its slate graph (no model
+    collectives), which serves its eager loop's slate and the mesh-free
+    engine's, bit for bit."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    cfg = reduced(get_config("itfi-ranker"))
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         torch.float32, "cuda")
+    scfg = ServingConfig(max_batch=8, prefill_len=32, inject_len=8,
+                         cache_capacity=48)
+    plain = ServingEngine(cfg, params, scfg, device="cuda")
+    eng = ServingEngine(cfg, params, scfg, device="cuda", mesh=mesh_1x1)
+    assert eng.graph_slates and eng.data_shards == 1
+    rng = np.random.RandomState(0)
+    toks, valid = eng.pad_tokens([list(rng.randint(1, 500, 20))
+                                  for _ in range(8)], 32)
+    stoks, svalid = eng.pad_tokens([list(rng.randint(1, 500, 5))
+                                    for _ in range(8)], 8, align="left")
+    out = []
+    for e in (plain, eng):
+        st = e.prefill(toks, valid, logits_last_only=True)
+        st = e.inject(st, stoks, svalid, fallback_logits=st["logits"][:, -1])
+        out.append((e.decode_slate(st, st["first_logits"], 6),
+                    e._decode_slate_loop(st, st["first_logits"], 6),
+                    st["first_logits"]))
+    np.testing.assert_array_equal(out[0][0], out[1][0])
+    np.testing.assert_array_equal(out[1][0], out[1][1])
+    assert torch.equal(out[0][2], out[1][2])
+    assert eng.slate_graph_stats()

@@ -51,7 +51,7 @@ def test_import_without_jax():
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "tools/torch_sharded_equiv_check.py"]))
 def test_source_imports_no_jax_or_repro(path):
     """A source scan: no ``import``/``from`` of jax, msgpack or repro."""
     src = (ROOT / path).read_text()
@@ -87,6 +87,14 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(cfg, params, scfg)
     ServingEngine(cfg, params, scfg, device="cpu")
+
+    from repro_torch.launch.mesh import make_serving_mesh, run_on_mesh
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_serving_mesh(1, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_on_mesh(1, 1, print)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg, params, scfg, mesh=object())
 
     from repro_torch.core.ab import (ABConfig, make_platform, run_experiment,
                                      train_ranker)

@@ -338,13 +338,15 @@ def test_attach_trainer_version_check():
     (["--roll-midway", "--rewarm", "4", "--max-wait", "3"], True),
     (["--build-budget", "10", "--roll-midway"], True),
     (["--pool", "8", "--roll-midway"], True),
-    (["--ab", "--roll-midway"], True), (["--mesh", "2,1"], False)])
+    (["--ab", "--roll-midway"], True),
+    (["--mesh", "2,1", "--roll-midway"], True)])
 def test_serve_launcher_loop_on_cpu_without_jax(extra, ok):
     """``python -m repro_torch.launch.serve --loop`` drives the Gateway
     with a seeded trace on the CPU, with ``jax`` made unimportable, from
     the host LRU or (``--pool``) the paged state pool, with ``--ab``'s
-    per-request arms; the parts not ported yet stop it with a message
-    naming their item."""
+    per-request arms, and (``--mesh 2,1``) sharded over two gloo ranks,
+    rank 0 printing the JAX launcher's mesh line; the parts not ported
+    yet stop it with a message naming their item."""
     import os
     import subprocess
     import sys
@@ -375,6 +377,11 @@ def test_serve_launcher_loop_on_cpu_without_jax(extra, ok):
     if "--pool" in extra:
         assert "paged state pool: 8 device slots" in out.stdout
         assert "'slots': 8" in out.stdout
+    assert ("mesh: data=2 model=1 (2 gloo ranks)" in out.stdout) \
+        == ("--mesh" in extra), out.stdout
+    if "--mesh" in extra:  # one rank prints
+        assert out.stdout.count("round 0:") == 1, out.stdout
+        assert "'shards': 2" in out.stdout, out.stdout
     assert ("last-round arms (mixed panes): {" in out.stdout) \
         == ("--ab" in extra), out.stdout
 
@@ -414,3 +421,29 @@ def test_serve_launcher_ab_split_equals_jax():
         return lines[0]
     assert split(got) == split(want)
     assert "'control'" in split(got) and "'treatment'" in split(got)
+
+
+def test_serve_launcher_defaults_match_jax():
+    """The port's launcher has the JAX launcher's flags and defaults (its
+    own ``--device`` aside). The JAX parser is built inside ``main``, so
+    it is caught at its ``parse_args``."""
+    import argparse
+    from unittest import mock
+
+    from repro.launch import serve as jserve
+    from repro_torch.launch.serve import build_parser
+
+    class Caught(Exception):
+        pass
+
+    def catch(parser, *args, **kwargs):
+        raise Caught(parser)
+
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", catch):
+        with pytest.raises(Caught) as caught:
+            jserve.main()
+    want = vars(caught.value.args[0].parse_args([]))
+    got = vars(build_parser().parse_args([]))
+    assert set(got) - set(want) == {"device"}
+    assert {k: got[k] for k in want} == want
+    assert (got["batch"], got["fresh"], got["decode_steps"]) == (4, 8, 16)
