@@ -155,7 +155,26 @@
    ``decode_slate``, timed by phase with the peak memory of each rank,
    and rank 0's layer inputs of the three kernels held against the plain
    versions). With one card (b) prints one line saying it did not run.
-   ``--mesh-only`` runs phase 20 alone, and no result line.
+   ``--mesh-only`` runs phase 20 alone, and no result line;
+21. the step layer on a mesh (``launch/steps.py``'s
+   ``make_step_and_specs``): (a) after phase 19, full-width
+   ``llama3.2-1b`` (bf16 from the seed) on a 1x1 NCCL mesh in this
+   process, each step kind against ``make_step_and_inputs``' one-device
+   step from the same seed on its own copy: two donating ``train_4k``
+   steps at local batch 1 (every metric and every updated leaf bit for
+   bit), a prefill at S 4096 and a ``decode_32k`` step at batch 1 (every
+   output bit for bit), each timed with the peak memory; (b) last, with
+   four cards, one process a card: ``llama3.2-1b`` in fp32 on 2x2, 1x4
+   and 4x1, one ``train_4k`` step at a global batch of 4 against the
+   mesh-free step on each rank's card (loss and grad norm within 1e-4
+   relative, every rank's blocks of the updated params and of m within
+   1e-4 at AdamW eps 1e-3), then ``codeqwen1.5-7b`` at full width (bf16
+   from the seed; FSDP 2 x TP 2) on 2x2: three ``train_4k`` steps at a
+   global batch of 2 (losses finite and equal on every rank, ms a step,
+   peak memory a rank), a prefill at S 4096 and two ``decode_32k``
+   steps at batch 2, rank 0's layer-0 kernel inputs held against the
+   plain versions. With one card (b) prints one line saying it did not
+   run. ``--steps-mesh-only`` runs phase 21 alone, and no result line.
 
 It needs a CUDA device: without one it exits non-zero and prints no result.
 The line before the last is the card's name and power limit; the last line
@@ -256,6 +275,21 @@ MESH_SHAPES = ((4, 1), (2, 2))
 JAMBA_ARCH, JAMBA_MESH, JAMBA_BATCH = "jamba-v0.1-52b", (1, 4), 64
 JAMBA_PANES = 2
 JAMBA_KERNELS = ("flash_attention", "decode_attention", "ssd_scan")
+# phase 21, the step layer on a mesh: (a) the full-width arch, its train
+# steps and its prefill's sequence on a 1x1 mesh; (b) the fp32 meshes held
+# against the mesh-free step and their global batch, then the arch that
+# trains only across cards, its mesh, global batch and steps
+STEPS_ARCH, STEPS_TRAIN_STEPS, STEPS_PREFILL_SEQ = "llama3.2-1b", 2, 4096
+STEPS_KERNELS = ("flash_attention", "decode_attention")
+STEPS_MESHES, STEPS_CARDS_BATCH = ((2, 2), (1, 4), (4, 1)), 4
+# (b)'s fp32 meshes: each rank's blocks of the updated params to within
+# STEPS_PARAM_TOL, and of m to within STEPS_M_REL_TOL of each leaf's
+# largest |m| (a first AdamW step at lr 1e-3 and eps 1e-3 moves a param by
+# about its gradient, ~1e-4; m is a tenth of the gradient)
+STEPS_PARAM_TOL, STEPS_M_REL_TOL = 1e-6, 1e-4
+STEPS_BIG_ARCH, STEPS_BIG_MESH, STEPS_BIG_BATCH = ("codeqwen1.5-7b", (2, 2),
+                                                   2)
+STEPS_BIG_TRAIN_STEPS, STEPS_BIG_DECODE_STEPS = 3, 2
 
 
 def card() -> str:
@@ -3665,14 +3699,13 @@ def run_frontend_archs(dev, gpu, report):
 # Phase 20: the device mesh
 # ----------------------------------------------------------------------
 
-# the modules' collective call sites, timed by CollectiveClock
+# the collectives timed by CollectiveClock: at their source, through
+# which the models' and the engine's wrappers (reduce_sum, gather_whole,
+# gather_part, gather_rows) call them, and where a module calls one by
+# its own name
 COLLECTIVE_SITES = (
-    ("repro_torch.models.attention", ("all_gather", "all_reduce")),
-    ("repro_torch.models.mlp", ("all_reduce",)),
-    ("repro_torch.models.moe", ("all_reduce",)),
-    ("repro_torch.models.ssm", ("all_gather", "all_reduce")),
-    ("repro_torch.models.model", ("all_gather",)),
-    ("repro_torch.serving.engine", ("gather_rows",)))
+    ("repro_torch.sharding.local", ("all_gather", "all_reduce")),
+    ("repro_torch.models.attention", ("all_gather",)))
 
 
 class CollectiveClock:
@@ -3689,15 +3722,14 @@ class CollectiveClock:
         from repro_torch.sharding.local import group_size
 
         def timed(x, mesh, *args, **kwargs):
-            axis = ("data" if name == "gather_rows" else
-                    args[0] if args else kwargs.get("axis", "model"))
-            if x is None or group_size(mesh, axis) == 1:
+            axis = args[0] if args else kwargs.get("axis", "model")
+            if group_size(mesh, axis) == 1:
                 return fn(x, mesh, *args, **kwargs)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(x, mesh, *args, **kwargs)
             torch.cuda.synchronize()
-            kind = f"{'all_gather' if name == 'gather_rows' else name} {axis}"
+            kind = f"{name} {axis}"
             self.ms[kind] = self.ms.get(kind, 0.0) + \
                 (time.perf_counter() - t0) * 1e3
             self.calls[kind] = self.calls.get(kind, 0) + 1
@@ -4135,6 +4167,458 @@ def run_mesh_cards(gpu, device_type="cuda"):
     return launches
 
 
+# ----------------------------------------------------------------------
+# Phase 21: the step layer on a mesh
+# ----------------------------------------------------------------------
+
+def steps_shapes():
+    """Phase 21's input shapes: the train, prefill and decode shapes of
+    (a) and (b)."""
+    from repro_torch.configs import InputShape, get_shape
+    return {"train": get_shape("train_4k"),
+            "prefill": InputShape("prefill_4k", STEPS_PREFILL_SEQ, 1,
+                                  "prefill"),
+            "decode": get_shape("decode_32k")}
+
+
+def steps_config(arch):
+    """The registered config of ``arch`` at full width."""
+    from repro_torch.configs import get_config
+    return get_config(arch)
+
+
+def _timed(fn, *args, sync=None):
+    """``fn(*args)`` from a device synchronise to a device synchronise:
+    (result, ms)."""
+    import torch
+    sync = sync or torch.cuda.synchronize
+    sync()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _seeded(dev):
+    import torch
+    return torch.Generator(device=dev).manual_seed(SEED)
+
+
+def _bitwise(got, want, label):
+    """Every leaf of ``got`` bit for bit the matching leaf of ``want``;
+    returns the leaves compared."""
+    import torch
+    from repro_torch.models.common import flatten_with_keystr
+    g, w = flatten_with_keystr(got), flatten_with_keystr(want)
+    if [p for p, _ in g] != [p for p, _ in w]:
+        raise SystemExit(f"{label}: the trees differ")
+    for (path, x), (_, y) in zip(g, w):
+        if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(x, y):
+            raise SystemExit(f"{label}: {path} differs from the mesh-free "
+                             f"step's")
+    return len(g)
+
+
+def run_steps_1x1(dev, gpu, report):
+    """Phase 21 (a): full-width ``llama3.2-1b`` (bf16 from the seed)
+    through ``make_step_and_specs`` on a 1x1 NCCL mesh in this process,
+    each step kind against ``make_step_and_inputs``' one-device step from
+    the same seed on its own copy: two donating ``train_4k`` steps at
+    local batch 1 (every metric and every updated leaf of the params and
+    the optimizer state bit for bit), a prefill at S 4096, batch 1 (the
+    last logits and every cache leaf) and a ``decode_32k`` step at batch
+    1 (the token and every cache leaf). The mesh steps' layer-0
+    ``flash_attention`` and ``decode_attention`` inputs are then held
+    against the plain versions, with their times and bounds in
+    ``report``. Returns the mesh steps' kernel launches."""
+    import gc
+
+    import torch
+    from repro_torch.launch.mesh import close_mesh, make_serving_mesh
+    from repro_torch.launch.steps import (make_step_and_inputs,
+                                          make_step_and_specs)
+    from repro_torch.models import attention as attn_mod
+
+    t0 = time.perf_counter()
+    cfg = steps_config(STEPS_ARCH)
+    shapes = steps_shapes()
+    ops = kernel_ops(STEPS_KERNELS)
+    launches = dict.fromkeys(STEPS_KERNELS, 0)
+    mesh = make_serving_mesh(1, 1, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        # ---- train_4k: two donating steps each ----------------------
+        step, args = make_step_and_inputs(cfg, shapes["train"], batch=1,
+                                          device=dev, generator=_seeded(dev))
+        free_ms, free_metrics = [], []
+        for _ in range(STEPS_TRAIN_STEPS):
+            (p, o, m), ms = _timed(step, *args)
+            args = (p, o, args[2])
+            free_ms.append(ms)
+            free_metrics.append(m)
+        want = args[:2]
+        del step, args, p, o
+        mstep, margs, ins, outs = make_step_and_specs(
+            cfg, shapes["train"], mesh, batch=1, device=dev,
+            generator=_seeded(dev))
+        mesh_ms, mesh_metrics = [], []
+        for _ in range(STEPS_TRAIN_STEPS):
+            for op in ops.values():
+                op.launches = 0
+            (p, o, m), ms = _timed(mstep, *margs)
+            add_launches(launches, {n: op.launches for n, op in ops.items()})
+            margs = (p, o, margs[2])
+            mesh_ms.append(ms)
+            mesh_metrics.append(m)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        n = _bitwise(list(margs[:2]), list(want), "phase 21 (a) train_4k")
+        for i, (a, b) in enumerate(zip(mesh_metrics, free_metrics)):
+            _bitwise(a, b, f"phase 21 (a) train_4k step {i} metrics")
+        print(f"phase 21 (a) {cfg.name} train_4k, batch 1 x "
+              f"{shapes['train'].seq_len}, two donating steps on a 1x1 NCCL "
+              f"mesh: {n} leaves of params and optimizer state and every "
+              f"metric bit for bit the mesh-free steps'; losses "
+              f"{[round(float(m['loss']), 6) for m in mesh_metrics]}, grad "
+              f"norms {[round(float(m['grad_norm']), 6) for m in mesh_metrics]}"
+              f"; ms a step: mesh {[round(x, 1) for x in mesh_ms]}, "
+              f"mesh-free {[round(x, 1) for x in free_ms]} (host clock, "
+              f"synchronised); peak {peak:.2f} GB with both copies held "
+              f"[{gpu}]")
+        del want, margs, mstep, p, o
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        # ---- prefill at S 4096 and decode_32k, batch 1 --------------
+        recorded = {"prefill": "flash_attention",
+                    "decode": "decode_attention"}
+        for kind in ("prefill", "decode"):
+            step, args = make_step_and_inputs(cfg, shapes[kind], batch=1,
+                                              device=dev,
+                                              generator=_seeded(dev))
+            want, free_ms = _timed(step, *args)
+            del step, args
+            mstep, margs, _, _ = make_step_and_specs(
+                cfg, shapes[kind], mesh, batch=1, device=dev,
+                generator=_seeded(dev))
+            rec, calls = record_calls(attn_mod, recorded[kind])
+            for op in ops.values():
+                op.launches = 0
+            with rec:
+                got, ms = _timed(mstep, *margs)
+            n_k = {n: op.launches for n, op in ops.items()}
+            add_launches(launches, n_k)
+            n = _bitwise(list(got), list(want), f"phase 21 (a) {kind}")
+            if kind == "prefill":
+                check_logits(got[0], "phase 21 (a) prefill")
+            else:
+                check_tokens(got[0][:, None], cfg.vocab_size,
+                             "phase 21 (a) decode")
+            print(f"phase 21 (a) {cfg.name} {shapes[kind].name} "
+                  f"(S {shapes[kind].seq_len}, batch 1) on the 1x1 mesh: "
+                  f"{n} outputs bit for bit the mesh-free step's; mesh "
+                  f"{ms:.1f} ms, mesh-free {free_ms:.1f} ms (host clock, "
+                  f"synchronised, first call); launches {n_k}; peak "
+                  f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+                  f"[{gpu}]")
+            del want, got, margs, mstep
+            gc.collect()
+            torch.cuda.empty_cache()
+            if kind == "prefill":
+                check_flash_rows("llama_prefill", calls[0][0],
+                                 cfg.sliding_window, "llama3.2-1b layer-0 "
+                                 "prefill on the 1x1 mesh", report, gpu)
+            else:
+                check_decode_at("llama_decode_32k", calls[0][0],
+                                "llama3.2-1b layer-0 decode_32k on the 1x1 "
+                                "mesh", report, gpu)
+            del calls, rec
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+    finally:
+        close_mesh()
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"phase 21 (a): a kernel never launched: {launches}")
+    print(f"time phase 21 (a): {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches} [{gpu}]")
+    return launches
+
+
+def _rank_device(device_type):
+    import torch
+    if device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _rank_peak(dev, device_type):
+    import torch
+    return (torch.cuda.max_memory_allocated(dev) / 1e9
+            if device_type == "cuda" else 0.0)
+
+
+def steps_llama_worker(mesh, device_type):
+    """Phase 21 (b) 1 on one rank: ``llama3.2-1b`` in fp32, one
+    ``train_4k`` step at a global batch of STEPS_CARDS_BATCH on this mesh
+    (``make_step_and_specs``' args, AdamW eps 1e-3), against the mesh-free
+    step from the same seed on the rank's own card, of which the rank
+    keeps only its blocks: loss and grad norm relative errors, the
+    largest abs error of the rank's blocks of the updated params, and the
+    largest error of its blocks of m relative to each leaf's largest |m|,
+    over every rank."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.steps import (make_step_and_inputs,
+                                          make_step_and_specs)
+    from repro_torch.models.common import flatten_with_keystr
+    from repro_torch.sharding.local import shard_tree
+    from repro_torch.sharding.rules import param_pspecs
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+
+    _quiet_ranks()
+    dev = _rank_device(device_type)
+    sync = torch.cuda.synchronize if device_type == "cuda" else (lambda: None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = steps_config(STEPS_ARCH)
+    shape = steps_shapes()["train"]
+    b = STEPS_CARDS_BATCH
+    adamw = AdamWConfig(lr=1e-3, warmup_steps=0, eps=1e-3)
+    specs = param_pspecs(cfg, mesh)
+    _, args = make_step_and_inputs(cfg, shape, batch=b, device=dev,
+                                   dtype=torch.float32,
+                                   generator=_seeded(dev))
+    ref = make_train_step(cfg, TrainConfig(adamw=adamw, remat=True,
+                                           param_dtype=torch.float32),
+                          donate=True)
+    (p, o, want), ref_ms = _timed(ref, *args, sync=sync)
+    want = {k: float(v) for k, v in want.items()}
+    keep = {"params": shard_tree(p, specs, mesh),
+            "m": shard_tree(o.m, specs, mesh)}
+    keep = {k: {path: t.clone() for path, t in flatten_with_keystr(v)}
+            for k, v in keep.items()}
+    del args, p, o, ref
+    gc.collect()
+    if device_type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    _, margs, ins, _ = make_step_and_specs(cfg, shape, mesh, batch=b,
+                                           device=dev, dtype=torch.float32,
+                                           generator=_seeded(dev))
+    step = make_train_step(cfg, TrainConfig(
+        adamw=adamw, remat=True, param_dtype=torch.float32, mesh=mesh),
+        donate=True)
+    (p, o, got), ms = _timed(step, *margs, sync=sync)
+    got = {k: float(v) for k, v in got.items()}
+    errs = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+            for k in ("loss", "grad_norm")}
+    errs["params"] = max(float((t - keep["params"][path]).abs().max())
+                         for path, t in flatten_with_keystr(p))
+    errs["m"] = max(float((t - keep["m"][path]).abs().max()
+                          / keep["m"][path].abs().max().clamp_min(1e-30))
+                    for path, t in flatten_with_keystr(o.m))
+    peak = _rank_peak(dev, device_type)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (errs, got["loss"], ms, peak))
+    worst = {k: max(e[0][k] for e in every) for k in errs}
+    return {"errs": worst, "loss": want["loss"], "losses": [e[1] for e in
+                                                            every],
+            "ms": ms, "ref_ms": ref_ms, "peaks": [e[3] for e in every]}
+
+
+def steps_codeqwen_worker(mesh, device_type):
+    """Phase 21 (b) 2 on one rank: ``codeqwen1.5-7b`` at full width, bf16
+    from the seed, through ``make_step_and_specs`` on this mesh: three
+    donating ``train_4k`` steps at a global batch of STEPS_BIG_BATCH (loss
+    finite and equal on every rank), then a prefill at S 4096 and two
+    greedy ``decode_32k`` steps at the same batch, recording layer 0's
+    kernel inputs, which rank 0 holds against the plain versions. Returns
+    rank 0's numbers and every rank's peak memory."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.steps import make_step_and_specs
+    from repro_torch.models import attention as attn_mod
+
+    _quiet_ranks()
+    dev = _rank_device(device_type)
+    gpu = card() if device_type == "cuda" else "cpu"
+    sync = torch.cuda.synchronize if device_type == "cuda" else (lambda: None)
+    cfg = steps_config(STEPS_BIG_ARCH)
+    shapes = steps_shapes()
+    b = STEPS_BIG_BATCH
+    ops = kernel_ops(STEPS_KERNELS)
+    launches = dict.fromkeys(STEPS_KERNELS, 0)
+    sizes = f"{mesh.size(0)}x{mesh.size(1)}"
+    t0 = time.perf_counter()
+    step, (params, opt, batch), _, _ = make_step_and_specs(
+        cfg, shapes["train"], mesh, batch=b, device=dev,
+        generator=_seeded(dev))
+    sync()
+    init_s = time.perf_counter() - t0
+    local_gb = sum(x.nbytes for t in (params, opt.master, opt.m, opt.v)
+                   for x in _leaves(t)) / 1e9
+    losses, step_ms = [], []
+    for _ in range(STEPS_BIG_TRAIN_STEPS):
+        for op in ops.values():
+            op.launches = 0
+        (params, opt, m), ms = _timed(step, params, opt, batch, sync=sync)
+        add_launches(launches, {n: op.launches for n, op in ops.items()})
+        losses.append(float(m["loss"]))
+        step_ms.append(ms)
+    train_peak = _rank_peak(dev, device_type)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (losses, train_peak))
+    if any(e[0] != losses for e in every) or not all(
+            math.isfinite(x) for x in losses):
+        raise SystemExit(f"phase 21 codeqwen {sizes}: the ranks' losses "
+                         f"differ or are not finite: {every}")
+    print(f"phase 21 (b) {cfg.name} train_4k on a {sizes} mesh, global batch "
+          f"{b} x {shapes['train'].seq_len}, bf16 from seed {SEED}: init "
+          f"{init_s:.1f} s, {local_gb:.3f} GB of params and optimizer state "
+          f"a rank; losses {losses} (equal on every rank); ms a step "
+          f"{[round(x, 1) for x in step_ms]} (host clock, synchronised); "
+          f"peak a rank {[round(e[1], 2) for e in every]} GB [{gpu}]")
+    del step, params, opt, batch
+    gc.collect()
+    if device_type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    prefill_shape = dataclasses.replace(shapes["prefill"], global_batch=b)
+    pstep, pargs, _, _ = make_step_and_specs(cfg, prefill_shape, mesh,
+                                             device=dev,
+                                             generator=_seeded(dev))
+    rec_fa, fa_calls = record_calls(attn_mod, "flash_attention")
+    for op in ops.values():
+        op.launches = 0
+    with rec_fa:
+        (logits, _), prefill_ms = _timed(pstep, *pargs, sync=sync)
+    add_launches(launches, {n: op.launches for n, op in ops.items()})
+    check_logits(logits, f"phase 21 codeqwen {sizes} prefill")
+    del pstep, pargs, logits
+    gc.collect()
+    dstep, (params, caches, tok, pos), _, _ = make_step_and_specs(
+        cfg, shapes["decode"], mesh, batch=b, device=dev,
+        generator=_seeded(dev))
+    rec_da, da_calls = record_calls(attn_mod, "decode_attention")
+    decode_ms = []
+    for i in range(STEPS_BIG_DECODE_STEPS):
+        for op in ops.values():
+            op.launches = 0
+        with rec_da:
+            (nxt, caches), ms = _timed(dstep, params, caches, tok, pos,
+                                       sync=sync)
+        add_launches(launches, {n: op.launches for n, op in ops.items()})
+        check_tokens(nxt[:, None], cfg.vocab_size,
+                     f"phase 21 codeqwen {sizes} decode")
+        tok, pos = nxt[:, None], pos + 1
+        decode_ms.append(ms)
+    peak = _rank_peak(dev, device_type)
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, (train_peak, peak))
+    print(f"time phase 21 (b) {cfg.name} on {sizes}: prefill S "
+          f"{shapes['prefill'].seq_len} batch {b} {prefill_ms:.1f} ms, "
+          f"decode_32k steps {[round(x, 1) for x in decode_ms]} ms (host "
+          f"clock, synchronised); launches {launches}; peak a rank (train, "
+          f"serve) {peaks} GB [{gpu}]")
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"phase 21 codeqwen: a kernel never launched: "
+                         f"{launches}")
+    checks = {}
+    if dist.get_rank() == 0 and device_type == "cuda":
+        report = {"flash_attention": {}, "decode_attention": {}}
+        check_flash_rows("codeqwen", fa_calls[0][0], cfg.sliding_window,
+                         "codeqwen layer-0 prefill, rank 0 shard", report,
+                         gpu)
+        check_decode_at("codeqwen", da_calls[0][0], "codeqwen layer-0 "
+                        "decode, rank 0 shard", report, gpu)
+        checks = {k: {"ms": v["codeqwen_ms"],
+                      "plain_ms": v["codeqwen_plain_ms"],
+                      "max_abs_err": v["codeqwen_max_abs_err"]}
+                  for k, v in report.items()}
+    dist.barrier()
+    return {"losses": losses, "step_ms": step_ms, "init_s": init_s,
+            "local_gb": local_gb, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "peaks": peaks, "launches": launches,
+            "checks": checks}
+
+
+def run_steps_cards(gpu, device_type="cuda"):
+    """Phase 21 (b), with at least four cards, one process a card:
+    ``llama3.2-1b`` in fp32 on 2x2, 1x4 and 4x1 against the mesh-free
+    step (loss and grad norm within 1e-4 relative, the updated params
+    within STEPS_PARAM_TOL and m within STEPS_M_REL_TOL of each leaf's
+    largest |m|), then ``codeqwen1.5-7b`` at full width on 2x2. Returns
+    the codeqwen run's launches."""
+    import gc
+
+    import torch
+    from repro_torch.launch.mesh import run_on_mesh
+
+    cards = torch.cuda.device_count() if device_type == "cuda" else 4
+    if cards < 4:
+        print(f"phase 21 (b): not run: it needs 4 cards and this machine "
+              f"has {cards} (torch.cuda.device_count()); llama3.2-1b's fp32 "
+              f"train step on 2x2, 1x4 and 4x1 and codeqwen1.5-7b's "
+              f"training on 2x2 run on four cards")
+        return {}
+    gc.collect()
+    if device_type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for shape in STEPS_MESHES:
+        t1 = time.perf_counter()
+        res = run_on_mesh(*shape, steps_llama_worker, device_type,
+                          device=device_type, timeout_s=900)
+        name = f"{shape[0]}x{shape[1]}"
+        e = res["errs"]
+        print(f"phase 21 (b) fp32 {STEPS_ARCH} train_4k at {name} against "
+              f"the mesh-free step, global batch {STEPS_CARDS_BATCH}: loss "
+              f"{res['loss']:.6f}, rel err loss {e['loss']:.3g}, grad norm "
+              f"{e['grad_norm']:.3g} (tolerance {E2E_TOL}); max abs err "
+              f"params {e['params']:.3g} (tolerance {STEPS_PARAM_TOL}); m's "
+              f"max err over its leaf's max |m| {e['m']:.3g} (tolerance "
+              f"{STEPS_M_REL_TOL}); ms a step "
+              f"{res['ms']:.1f} (mesh-free {res['ref_ms']:.1f}); peak a rank "
+              f"{[round(x, 2) for x in res['peaks']]} GB; "
+              f"{time.perf_counter() - t1:.1f} s with its processes' start "
+              f"[{gpu}]")
+        if (max(e["loss"], e["grad_norm"]) > E2E_TOL
+                or e["params"] > STEPS_PARAM_TOL or e["m"] > STEPS_M_REL_TOL
+                or len(set(res["losses"])) != 1):
+            raise SystemExit(f"phase 21 (b) {name}: the mesh step differs "
+                             f"from the mesh-free one: {e}, losses "
+                             f"{res['losses']}")
+    t1 = time.perf_counter()
+    big = run_on_mesh(*STEPS_BIG_MESH, steps_codeqwen_worker, device_type,
+                      device=device_type, timeout_s=1200)
+    print(f"phase 21 (b) {STEPS_BIG_ARCH} {STEPS_BIG_MESH[0]}x"
+          f"{STEPS_BIG_MESH[1]}: {time.perf_counter() - t1:.1f} s with its "
+          f"processes' start; kernels at rank 0's layer-0 inputs "
+          f"{big['checks']} [{gpu}]")
+    print(f"time phase 21 (b): {time.perf_counter() - t0:.1f} s; launches "
+          f"{big['launches']} [{gpu}]")
+    return big["launches"]
+
+
+def steps_mesh_only(dev, gpu) -> int:
+    """``--steps-mesh-only``: phase 21 alone, (a) and then (b) where there
+    are four cards. Prints its checks and times, and no result line."""
+    report = {"flash_attention": {}, "decode_attention": {}}
+    launches = run_steps_1x1(dev, gpu, report)
+    add_launches(launches, run_steps_cards(gpu))
+    print(f"phase 21 alone: launches {launches} [{gpu}]")
+    return 0
+
+
 def mesh_only(dev, gpu) -> int:
     """``--mesh-only``: phase 20 alone, (a) over its own full-width itfi
     ranker and feature plane, then (b) where there are four cards. Prints
@@ -4177,6 +4661,8 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s")
     if argv == ["--mesh-only"]:
         return mesh_only(dev, gpu)
+    if argv == ["--steps-mesh-only"]:
+        return steps_mesh_only(dev, gpu)
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -4199,7 +4685,9 @@ def main(argv=None) -> int:
     ab_launches = run_ab_experiment(dev, gpu, report)
     scenario_launches = run_scenarios(dev, gpu)
     frontend_launches = run_frontend_archs(dev, gpu, report)
+    steps_launches = run_steps_1x1(dev, gpu, report)
     cards_launches = run_mesh_cards(gpu)
+    steps_cards_launches = run_steps_cards(gpu)
     missing = set(names) ^ set(report)
     if missing:
         raise SystemExit(f"kernels without a check: {sorted(missing)}")
@@ -4207,7 +4695,8 @@ def main(argv=None) -> int:
                     *ssm_launches.items(), *ssm_gateway_launches.items(),
                     *ab_launches.items(), *scenario_launches.items(),
                     *frontend_launches.items(), *mesh_launches.items(),
-                    *cards_launches.items()):
+                    *steps_launches.items(), *cards_launches.items(),
+                    *steps_cards_launches.items()):
         launches[name] = launches.get(name, 0) + n
     kernels = [dict(report[n], launches=launches[n]) for n in names]
     print(json.dumps({"kernels": kernels}))

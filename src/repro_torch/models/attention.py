@@ -17,6 +17,19 @@ projection's partial sums are all-reduced. head_dim on the model axis
 projections are replicated) are full, the cache holds the rank's
 head_dim block and is all-gathered before the kernel, and the rank keeps
 its head_dim block of the output for its rows of ``wo``, then all-reduces.
+
+The training layout (``param_pspecs(decode=False)``, FSDP gathered per
+layer by the caller) adds one case: heads on the model axis by
+``n_heads`` while the kv heads do not divide it, so K/V projections are
+replicated. The rank then holds its q heads and every kv head; local q
+head ``i`` is global head ``rank * nq_local + i`` and attends to kv head
+``global // (n_heads // n_kv_heads)``. Where a rank computes only its
+part (its heads or its head_dim block), the layer's input and the
+replicated K/V weights enter through ``grad_sum`` and q's gather through
+``gather_part``, so that under autograd each rank's gradient of each of
+its shards is that block of the one-device gradient
+(``sharding/local.py``); without a gradient these are the serving
+path's collectives.
 """
 from __future__ import annotations
 
@@ -31,7 +44,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.common import scaled_init
 from repro_torch.models.rope import apply_rope
-from repro_torch.sharding.local import all_gather, all_reduce, shard_block
+from repro_torch.sharding.local import (all_gather, axis_rank, gather_part,
+                                        grad_sum, reduce_sum, shard_block)
 
 
 def init_attention(gen, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
@@ -60,7 +74,7 @@ def _project_qkv(params, x, positions, cfg: ModelConfig, mesh=None):
         k = k + params["bk"]
         v = v + params["bv"]
     if q.shape[-1] != cfg.head_dim_:
-        q = all_gather(q, mesh, "model", -1)
+        q = gather_part(q, mesh, "model", -1)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -79,9 +93,43 @@ def _out_proj(params, out, cfg: ModelConfig, mesh):
     if _hd_sharded(params, cfg):
         out = out[..., shard_block(cfg.head_dim_, "model", mesh)]
     y = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
-    if tuple(params["wo"].shape[:2]) != (cfg.n_heads, cfg.head_dim_):
-        y = all_reduce(y, mesh)
+    if _cut(params, cfg):
+        y = reduce_sum(y, mesh)
     return y
+
+
+def _cut(params, cfg: ModelConfig) -> bool:
+    """Whether the rank's ``wo`` is a block (heads or head_dim cut over
+    the model axis): the layer's work is then split between the ranks."""
+    return tuple(params["wo"].shape[:2]) != (cfg.n_heads, cfg.head_dim_)
+
+
+def _enter(params, x, cfg: ModelConfig, mesh):
+    """The layer's input and params as a cut layer uses them: ``x`` and
+    the K/V projections that every rank holds whole enter through
+    ``grad_sum`` (each rank's gradient of them is its part)."""
+    if mesh is None or not _cut(params, cfg):
+        return params, x
+    params = dict(params)
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in params and params[name].shape[-2] == cfg.n_kv_heads:
+            params[name] = grad_sum(params[name], mesh)
+    return params, grad_sum(x, mesh)
+
+
+def _kv_for_heads(k, v, q_heads: int, cfg: ModelConfig, mesh):
+    """K/V (B,S,nkv,hd) of every kv head for a rank that holds ``q_heads``
+    of the q heads (the training layout's replicated K/V): one kv head
+    for each of its q heads, the one that head attends to, so that the
+    kernels' grouping (one q head a kv head) pairs them. Unchanged when
+    the rank holds every q head or a block of the kv heads."""
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    if q_heads == nq or k.shape[2] != nkv:
+        return k, v
+    first = axis_rank(mesh, "model") * q_heads
+    sel = torch.tensor([(first + i) // (nq // nkv) for i in range(q_heads)],
+                       device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
 
 
 def _full_hd(kv, cfg: ModelConfig, mesh):
@@ -118,6 +166,7 @@ def attention_full(params, x, positions, cfg: ModelConfig, *,
     docstring), and so are the returned K/V.
     """
     b, s, _ = x.shape
+    params, x = _enter(params, x, cfg, mesh)
     q, k, v = _project_qkv(params, x, positions, cfg, mesh)
     qpos = positions.to(torch.int32).expand(b, s).contiguous()
     kpos = qpos
@@ -134,7 +183,8 @@ def attention_full(params, x, positions, cfg: ModelConfig, *,
                 else torch.ones((b, sp), dtype=torch.bool, device=x.device))
         kvalid = torch.cat([pval, kvalid], dim=1)
     attend = flash_attention if use_kernel else attention_ref
-    out = attend(q.contiguous(), k.contiguous(), v.contiguous(), qpos,
+    kq, vq = _kv_for_heads(k, v, q.shape[2], cfg, mesh)
+    out = attend(q.contiguous(), kq.contiguous(), vq.contiguous(), qpos,
                  kpos.contiguous(), kvalid.contiguous(),
                  window=cfg.sliding_window)
     if _hd_sharded(params, cfg):  # the cache keeps the rank's block

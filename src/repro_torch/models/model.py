@@ -26,6 +26,17 @@ collectives over the model axis that the layout implies (the embedding's
 d_model all-gathered, the attention, MLP, MoE and SSM outputs
 all-reduced, the vocab-sharded logits all-gathered). Without a mesh,
 or on a 1x1 one, the code path is the one-device path.
+
+With ``specs`` as well (a spec tree of ``param_pspecs``, FSDP kept: the
+training layout, or the decode rules with FSDP) the params are the
+rank's shards in that layout. Each block then gathers its FSDP-cut
+leaves over the data axis on entry (``fsdp_gather``), inside the remat
+boundary, so a block recomputed in the backward pass gathers again,
+and only then runs the layers' model-axis code. Under autograd every
+collective has its conjugate (``sharding/local.py``): each rank's
+gradient of each of its shards is that block of the one-device
+gradient, the data-axis sums aside, which the train step makes
+(``training/train_loop.py``).
 """
 from __future__ import annotations
 
@@ -39,11 +50,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import normal_init
+from repro_torch.models.common import flatten_with_keystr, normal_init
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.norms import init_rmsnorm, rmsnorm
-from repro_torch.sharding.local import all_gather, shard_tree
+from repro_torch.sharding.local import (all_gather, fsdp_tree, gather_whole,
+                                        grad_sum, shard_block, shard_tree)
 
 NEG_INF = -1e30
 
@@ -108,7 +120,8 @@ def _stacked(make, R: int, keep=None):
     """The (R, ...) tree of ``make(0)``, ..., ``make(R - 1)``, called in
     order, each copied into its slice and dropped: what ``torch.stack``
     of the list would give, without holding the list. ``keep`` maps each
-    made tree to what is kept of it (a rank's shards)."""
+    made tree to what is kept of it (a rank's shards). A tree of meta
+    tensors holds nothing to copy: its first repeat gives the shapes."""
     out = None
     for r in range(R):
         tree = make(r)
@@ -116,12 +129,14 @@ def _stacked(make, R: int, keep=None):
             tree = keep(tree)
         if out is None:
             out = _empty_stacked(tree, R)
+            if all(t.is_meta for _, t in flatten_with_keystr(tree)):
+                return out
         _set_slice(out, r, tree)
     return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.bfloat16, device="cuda", mesh=None
+                dtype=torch.bfloat16, device="cuda", mesh=None, specs=None
                 ) -> Dict[str, Any]:
     """Random params with the JAX ``init_params``' paths, shapes and scales.
     The random bits are torch's, not ``jax.random``'s: each repeat's layer
@@ -132,29 +147,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     (``sharding.rules.serving_param_pspecs``): every layer is still drawn
     whole, in the same order from the same generator, and only the rank's
     block of it is kept, so the shards are bit for bit the blocks of the
-    unsharded init, and no more than one layer is ever whole."""
+    unsharded init, and no more than one layer is ever whole. ``specs``
+    (a spec tree of the params, such as ``param_pspecs(cfg, mesh)``, the
+    training layout) replaces the serving layout."""
     pat = pattern_sig(cfg)
     R = cfg.n_layers // len(pat)
-    specs = None
-    if mesh is not None:
+    if mesh is None:
+        specs = None
+    elif specs is None:
         from repro_torch.sharding.rules import serving_param_pspecs
         specs = serving_param_pspecs(cfg, mesh)
 
     def keep(tree, spec):
         return tree if spec is None else shard_tree(tree, spec, mesh)
 
-    def layer_spec(p):  # one repeat's specs: the leading R entry dropped
-        if specs is None:
-            return None
-        from repro_torch.sharding.rules import P, tree_map_specs
-        return tree_map_specs(lambda sp: P(*sp[1:]),
-                              specs["blocks"][f"pos{p}"])
-
     blocks = {f"pos{p}": _stacked(
         lambda r, kind=kind, mlp_kind=mlp_kind: _init_layer(
             generator, cfg, kind, mlp_kind, dtype, device), R,
         keep=None if specs is None else
-        (lambda tree, sp=layer_spec(p): keep(tree, sp)))
+        (lambda tree, sp=_layer_specs(specs["blocks"][f"pos{p}"]):
+         keep(tree, sp)))
               for p, (kind, mlp_kind) in enumerate(pat)}
     params = {
         "embed": keep({"table": normal_init(
@@ -190,11 +202,12 @@ def _take(tree, r: int):
 
 def _layer(lp, x, positions, valid, cfg: ModelConfig, *, kind="attn",
            mlp_kind="dense", mode="forward", cache=None, prefix_valid=None,
-           inplace=False, use_kernels=True, mesh=None):
+           inplace=False, use_kernels=True, mesh=None, aux_over_data=False):
     """One block. Returns (x, cache_out, aux): cache_out is for "prefill"
     and "extend" the layer's K/V (prefix + suffix) or its SSM tails and
     state, for "decode" its updated cache, None for "forward"; aux is the
-    MoE load-balance loss (an f32 scalar), None without an MoE MLP."""
+    MoE load-balance loss (an f32 scalar), None without an MoE MLP, over
+    the whole data-cut batch with ``aux_over_data`` (``moe_apply``)."""
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
     if kind == "attn" and mode == "decode":
         mix, cache_out = attn_mod.attention_decode(
@@ -218,14 +231,15 @@ def _layer(lp, x, positions, valid, cfg: ModelConfig, *, kind="attn",
                     cfg.d_ff)
     elif mlp_kind == "moe":
         out, aux = moe_apply(lp["moe"], rmsnorm(lp["norm2"], x, cfg.norm_eps),
-                             cfg, mesh)
+                             cfg, mesh, aux_over_data)
         x = x + out
     return x, (None if mode == "forward" else cache_out), aux
 
 
 def _run_stack(params, x, cfg: ModelConfig, *, mode, positions, valid=None,
                caches=None, prefix_valid=None, inplace=False,
-               use_kernels=True, remat=False, mesh=None):
+               use_kernels=True, remat=False, mesh=None, specs=None,
+               cache_specs=None):
     """The R x P blocks in order. Returns (x, caches_out, aux) with
     caches_out stacked over R like the JAX scan's output, or None for
     "forward", and aux the MoE load-balance losses summed over the layers
@@ -233,7 +247,14 @@ def _run_stack(params, x, cfg: ModelConfig, *, mode, positions, valid=None,
     With ``inplace`` (decode only) the ring writes, conv tails and states
     go into ``caches``' own tensors, which are returned. With ``remat``
     ("forward" only) each block's activations are recomputed in the
-    backward pass instead of kept (``torch.utils.checkpoint``)."""
+    backward pass instead of kept (``torch.utils.checkpoint``). ``specs``:
+    the params' layout on ``mesh`` with FSDP (module docstring); each
+    block gathers its leaves first, and the MoE aux loss takes its means
+    over the data-cut batch. ``cache_specs`` ("decode" only): the caches'
+    layout on ``mesh`` where it cuts the ring's slots over the data axis
+    (``cache_pspecs`` for a batch that does not split over it); each
+    layer then gathers its own slots on entry and keeps its block on
+    exit, so no more than one layer's ring is ever whole."""
     pat = pattern_sig(cfg)
     R = cfg.n_layers // len(pat)
     # an attention cache without "valid" gets a new one, so no longer fits
@@ -246,15 +267,29 @@ def _run_stack(params, x, cfg: ModelConfig, *, mode, positions, valid=None,
         for p, (kind, mlp_kind) in enumerate(pat):
             key = f"pos{p}"
             cache = None if caches is None else _take(caches[key], r)
-            layer = functools.partial(
-                _layer, _take(params["blocks"][key], r), positions=positions,
-                valid=valid, cfg=cfg, kind=kind, mlp_kind=mlp_kind,
-                mode=mode, cache=cache, prefix_valid=prefix_valid,
-                inplace=inplace, use_kernels=use_kernels, mesh=mesh)
+            cspecs = None if cache_specs is None else \
+                _layer_specs(cache_specs[key])
+            kw = dict(positions=positions, valid=valid, cfg=cfg, kind=kind,
+                      mlp_kind=mlp_kind, mode=mode,
+                      cache=cache if cspecs is None else
+                      _gather_slots(cache, cspecs, mesh),
+                      prefix_valid=prefix_valid, inplace=inplace,
+                      use_kernels=use_kernels, mesh=mesh)
+            if specs is None:
+                layer = functools.partial(
+                    _layer, _take(params["blocks"][key], r), **kw)
+            else:
+                layer = functools.partial(
+                    _fsdp_layer, _take(params["blocks"][key], r),
+                    _layer_specs(specs["blocks"][key]), **kw)
             if remat and mode == "forward" and torch.is_grad_enabled():
                 x, c_out, aux = checkpoint(layer, x, use_reentrant=False)
             else:
                 x, c_out, aux = layer(x)
+            del kw, layer
+            if cspecs is not None:
+                c_out = _keep_slots(cache if own else None, c_out, cspecs,
+                                    mesh)
             if outs is not None:
                 if key not in outs:
                     outs[key] = _empty_stacked(c_out, R)
@@ -267,6 +302,51 @@ def _run_stack(params, x, cfg: ModelConfig, *, mode, positions, valid=None,
     return x, (caches if own else outs), aux_sum
 
 
+def _layer_specs(specs):
+    """One repeat's specs of a stacked block: the leading R entry
+    dropped."""
+    from repro_torch.sharding.rules import P, tree_map_specs
+    return tree_map_specs(lambda sp: P(*sp[1:]), specs)
+
+
+def _slot_dim(spec):
+    """The dim of a cache leaf that ``spec`` cuts over the data axis, if
+    any."""
+    return next((d for d, e in enumerate(spec) if e == "data"), None)
+
+
+def _gather_slots(cache, lspecs, mesh):
+    """One layer's cache with each leaf that ``lspecs`` cuts over the data
+    axis all-gathered (the whole ring)."""
+    return {name: t if _slot_dim(lspecs[name]) is None else
+            all_gather(t, mesh, "data", _slot_dim(lspecs[name]))
+            for name, t in cache.items()}
+
+
+def _keep_slots(own, run, lspecs, mesh):
+    """This rank's block of each slot-cut leaf of one layer's updated
+    cache ``run``, written into the rank's own leaves ``own`` where
+    given; returns the rank's cache."""
+    out = {}
+    for name, t in run.items():
+        dim = _slot_dim(lspecs[name])
+        if dim is not None:
+            blk = shard_block(t.shape[dim], "data", mesh)
+            t = t.narrow(dim, blk.start, blk.stop - blk.start)
+            if own is not None:
+                t = own[name].copy_(t)
+        out[name] = t
+    return out
+
+
+def _fsdp_layer(lp, lspecs, x, *, mesh, **kw):
+    """``_layer`` on the block's leaves gathered over the data axis where
+    ``lspecs`` cuts them (inside the remat boundary: a recomputed block
+    gathers again), the MoE aux loss over the data-cut batch."""
+    return _layer(fsdp_tree(lp, lspecs, mesh), x, mesh=mesh,
+                  aux_over_data=True, **kw)
+
+
 def _logits(params, cfg: ModelConfig, x, mesh=None):
     """Logits (B,S,Vp) f32 of the final hidden states. On a mesh a tied
     table holding a d_model block is all-gathered first; an untied head
@@ -275,10 +355,12 @@ def _logits(params, cfg: ModelConfig, x, mesh=None):
     table = (params["embed"]["table"] if cfg.tie_embeddings
              else params["lm_head"]["table"])
     if table.shape[1] != cfg.d_model:
-        table = all_gather(table, mesh, "model", 1)
+        table = gather_whole(table, mesh, "model", 1)
+    if table.shape[0] != cfg.vocab_padded:  # each rank its vocab block
+        x = grad_sum(x, mesh)
     logits = torch.einsum("bsd,vd->bsv", x, table).float()
     if logits.shape[-1] != cfg.vocab_padded:
-        logits = all_gather(logits, mesh, "model", -1)
+        logits = gather_whole(logits, mesh, "model", -1)
     if cfg.vocab_padded != cfg.vocab_size:
         vmask = torch.arange(cfg.vocab_padded, device=x.device) \
             < cfg.vocab_size
@@ -293,7 +375,7 @@ def _embed(params, tokens, prefix_embeds=None, mesh=None, d_model=None):
     the model axis."""
     x = params["embed"]["table"][tokens.long()]
     if mesh is not None and x.shape[-1] != d_model:
-        x = all_gather(x, mesh, "model", -1)
+        x = gather_whole(x, mesh, "model", -1)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return x
@@ -309,7 +391,7 @@ def _default_positions(tokens, prefix_embeds):
 def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
             positions=None, valid=None, last_only: bool = False,
             use_kernels: bool = True, remat: bool = False,
-            mesh=None) -> torch.Tensor:
+            mesh=None, specs=None) -> torch.Tensor:
     """Logits (B, S, Vp) fp32, or (B, 1, Vp) of the last position alone
     with ``last_only`` (same values: norm and head are per position).
 
@@ -318,15 +400,18 @@ def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     (B,S) key mask (left padding). ``use_kernels=False`` runs plain
     attention and the plain SSD scan, the path autograd can differentiate
     (the kernels have no backward and raise under grad); ``remat``
-    recomputes each block in the backward pass."""
+    recomputes each block in the backward pass. ``mesh`` and ``specs``:
+    the params are a rank's shards (module docstring)."""
     return _forward(params, cfg, tokens, prefix_embeds=prefix_embeds,
                     positions=positions, valid=valid, last_only=last_only,
-                    use_kernels=use_kernels, remat=remat, mesh=mesh)[0]
+                    use_kernels=use_kernels, remat=remat, mesh=mesh,
+                    specs=specs)[0]
 
 
 def _forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
              positions=None, valid=None, last_only: bool = False,
-             use_kernels: bool = True, remat: bool = False, mesh=None):
+             use_kernels: bool = True, remat: bool = False, mesh=None,
+             specs=None):
     """``forward``'s (logits, MoE aux loss): the JAX ``forward``'s pair,
     which the training loss reads."""
     if positions is None:
@@ -337,7 +422,7 @@ def _forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
                                           mesh, cfg.d_model),
                            cfg, mode="forward", positions=positions,
                            valid=valid, use_kernels=use_kernels, remat=remat,
-                           mesh=mesh)
+                           mesh=mesh, specs=specs)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
@@ -346,19 +431,20 @@ def _forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
 
 def prefill(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
             positions=None, valid=None, logits_last_only: bool = False,
-            use_kernels: bool = True, mesh=None):
+            use_kernels: bool = True, mesh=None, specs=None):
     """Full-sequence pass that also returns the per-layer caches. Returns
     (logits (B,S,Vp) fp32, or (B,1,Vp) with ``logits_last_only``; caches
     {"pos{p}": {"k", "v"}} each (R,B,S,nkv,hd) for attention, the SSM
     tails and state for SSM positions). ``prefix_embeds`` and the default
     positions as in ``forward``; ``use_kernels=False`` runs the plain
-    attention and SSD scan."""
+    attention and SSD scan; ``mesh`` and ``specs`` as in ``forward``."""
     if positions is None:
         positions = _default_positions(tokens, prefix_embeds)
     x, caches, _ = _run_stack(params, _embed(params, tokens, prefix_embeds,
                                              mesh, cfg.d_model),
                               cfg, mode="prefill", positions=positions,
-                              valid=valid, use_kernels=use_kernels, mesh=mesh)
+                              valid=valid, use_kernels=use_kernels, mesh=mesh,
+                              specs=specs)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_last_only:
         x = x[:, -1:]
@@ -384,15 +470,19 @@ def extend(params, cfg: ModelConfig, caches, tokens, start_pos, *,
 
 
 def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
-                inplace: bool = False, mesh=None):
+                inplace: bool = False, mesh=None, specs=None,
+                cache_specs=None):
     """One-token serve step. tokens (B,1); pos (B,) int32, the number of
     tokens already in the cache (the new token's position). Returns
     (logits (B,1,Vp), updated ring caches). The caller's caches are left
-    as they were unless ``inplace``."""
+    as they were unless ``inplace``. ``mesh`` and ``specs`` as in
+    ``forward``; ``cache_specs``, where the ring's slots are cut over the
+    data axis, as in ``_run_stack``."""
     x, caches_out, _ = _run_stack(params, _embed(params, tokens, None, mesh,
                                                  cfg.d_model), cfg,
                                   mode="decode", positions=pos,
-                                  caches=caches, inplace=inplace, mesh=mesh)
+                                  caches=caches, inplace=inplace, mesh=mesh,
+                                  specs=specs, cache_specs=cache_specs)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, cfg, x, mesh), caches_out
 

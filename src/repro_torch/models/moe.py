@@ -29,7 +29,13 @@ every rank alike (the router is replicated), so every rank drops the same
 tokens. The rank holds a block of the experts (expert parallelism, when
 the experts divide the model axis) or a d_ff block of every expert; it
 runs only that, and the combined output's partial sums are all-reduced
-over the model axis.
+over the model axis. Under autograd the expert buffers and the combine
+weights enter that cut part through ``grad_sum``, so the router, which
+every rank computes alike, gets the whole gradient on every rank. With
+``aux_over_data`` the rows are the rank's block of a batch cut over the
+data axis, and the load-balance loss takes its means over the whole
+batch (its sums all-reduced over ``data``), as the JAX loss does on the
+global batch.
 """
 from __future__ import annotations
 
@@ -40,7 +46,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import scaled_init
-from repro_torch.sharding.local import all_reduce, shard_block
+from repro_torch.sharding.local import (group_size, grad_sum, reduce_sum,
+                                        shard_block)
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device
@@ -60,10 +67,11 @@ def moe_capacity(seq: int, cfg: ModelConfig) -> int:
 
 
 def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, mesh=None,
+              aux_over_data: bool = False,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d) -> (out (B,S,d), load-balance aux loss, an f32 scalar).
-    ``mesh``: the expert weights are the rank's shards (module
-    docstring)."""
+    ``mesh``: the expert weights are the rank's shards; ``aux_over_data``:
+    the aux loss over the data-cut batch (module docstring)."""
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.n_experts, m.top_k
@@ -100,6 +108,10 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, mesh=None,
 
     # ---- per-expert SwiGLU -------------------------------------------
     e_local = params["gate"].shape[0]
+    cut = e_local != e or params["down"].shape[1] != cfg.d_ff
+    if cut:
+        expert_in = grad_sum(expert_in, mesh)
+        top_w = grad_sum(top_w, mesh)
     if e_local != e:  # expert parallelism: the rank's experts only
         expert_in = expert_in[:, shard_block(e, "model", mesh)]
     g = torch.einsum("becd,edf->becf", expert_in, params["gate"])
@@ -119,13 +131,18 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, mesh=None,
     y_flat = torch.zeros((b, sk, d), dtype=x.dtype, device=x.device)
     y_flat.scatter_(1, order[..., None].expand(b, sk, d), y_sorted)
     y = (y_flat.reshape(b, s, k, d) * top_w[..., None].to(x.dtype)).sum(2)
-    if e_local != e or params["down"].shape[1] != cfg.d_ff:
-        y = all_reduce(y, mesh)
+    if cut:
+        y = reduce_sum(y, mesh)
 
     # ---- Switch-style load balance loss ------------------------------
     experts = torch.arange(e, device=x.device)
     assign = (top_e[..., :1] == experts).float()  # top-1 fraction
-    f_e = assign.mean(dim=(0, 1))
-    p_e = probs.mean(dim=(0, 1))
+    if aux_over_data and group_size(mesh, "data") > 1:
+        rows = b * s * group_size(mesh, "data")
+        f_e = reduce_sum(assign.sum(dim=(0, 1)), mesh, "data") / rows
+        p_e = reduce_sum(probs.sum(dim=(0, 1)), mesh, "data") / rows
+    else:
+        f_e = assign.mean(dim=(0, 1))
+        p_e = probs.mean(dim=(0, 1))
     aux = e * torch.sum(f_e * p_e) * m.load_balance_coef
     return y, aux

@@ -23,7 +23,12 @@ replicated. When the head block lines up with the d_inner block the scan
 runs on the rank's heads; when only d_inner is cut, x is all-gathered
 and the scan runs on every head, and the rank keeps its d_inner block of
 y. The gated norm's mean square over all of d_inner is all-reduced before
-its rsqrt, and so are ``out_proj``'s partial sums.
+its rsqrt, and so are ``out_proj``'s partial sums. Under autograd (the
+training layout) the mixer's input and the weights every rank holds
+whole enter that cut work through ``grad_sum``, x's gather is a
+``gather_part`` and the mean square's sum is summed back in the
+backward pass too, so each rank's gradient of each of its shards is
+that block of the one-device gradient.
 """
 from __future__ import annotations
 
@@ -37,7 +42,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 from repro_torch.models.common import normal_init, scaled_init
-from repro_torch.sharding.local import all_gather, all_reduce, shard_block
+from repro_torch.sharding.local import (gather_part, grad_sum, reduce_sum,
+                                        shard_block)
 
 
 def init_ssm(gen, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
@@ -123,7 +129,9 @@ def _gated_norm(y, z, scale, eps, mesh=None, d_inner=None):
     of squares is all-reduced over the model axis."""
     g = y.float() * F.silu(z.float())
     if mesh is not None and g.shape[-1] != d_inner:
-        var = all_reduce((g * g).sum(-1, keepdim=True), mesh) / d_inner
+        # each rank uses the sum with its own block: its gradient is summed
+        var = grad_sum(reduce_sum((g * g).sum(-1, keepdim=True), mesh),
+                       mesh) / d_inner
     else:
         var = (g * g).mean(-1, keepdim=True)
     return g * torch.rsqrt(var + eps) * scale.float()
@@ -139,7 +147,7 @@ def _heads_of(params, cfg: ModelConfig, xr, mesh):
     if din_local == nh_local * cfg.ssm.head_dim:
         return xr, nh_local, lambda y: y
     blk = shard_block(cfg.d_inner, "model", mesh)
-    return (all_gather(xr, mesh, "model", -1), cfg.n_ssm_heads,
+    return (gather_part(xr, mesh, "model", -1), cfg.n_ssm_heads,
             lambda y: y[..., blk])
 
 
@@ -148,8 +156,28 @@ def _out(params, y, cfg: ModelConfig, mesh):
     when the rank holds a d_inner block of its rows."""
     out = y @ params["out_proj"]
     if params["out_proj"].shape[0] != cfg.d_inner:
-        out = all_reduce(out, mesh)
+        out = reduce_sum(out, mesh)
     return out
+
+
+# the leaves every rank holds whole (the shared B/C path), and those it
+# holds whole when the heads do not divide the model axis
+_SHARED = ("wB", "wC", "conv_B", "conv_C", "conv_bias_B", "conv_bias_C")
+_HEADS = ("wdt", "A_log", "D", "dt_bias")
+
+
+def _enter(params, x, cfg: ModelConfig, mesh):
+    """The mixer's input and params as a cut mixer (``out_proj`` a block
+    of d_inner rows) uses them: ``x`` and the leaves every rank holds
+    whole enter through ``grad_sum``."""
+    if mesh is None or params["out_proj"].shape[0] == cfg.d_inner:
+        return params, x
+    params = dict(params)
+    whole = _SHARED + (_HEADS if params["wdt"].shape[-1] == cfg.n_ssm_heads
+                       else ())
+    for name in whole:
+        params[name] = grad_sum(params[name], mesh)
+    return params, grad_sum(x, mesh)
 
 
 def _project(params, x):
@@ -181,6 +209,7 @@ def ssm_forward(params, x, cfg: ModelConfig, *, cache=None, valid=None,
     b, s, _ = x.shape
     hp = s_cfg.head_dim
 
+    params, x = _enter(params, x, cfg, mesh)
     z, xr, Br, Cr, dt = _project(params, x)
     if valid is not None:
         # zero pad inputs so they can't leak through the causal conv window

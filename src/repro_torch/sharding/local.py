@@ -136,3 +136,175 @@ def warm_groups(mesh, device) -> None:
     for axis in mesh.mesh_dim_names:
         if group_size(mesh, axis) > 1:
             all_reduce(torch.zeros(1, device=device), mesh, axis)
+
+
+# ----------------------------------------------------------------------
+# Collectives with gradients: the training layout
+# ----------------------------------------------------------------------
+#
+# A rank of a region cut over an axis computes a part of that region's
+# work; a tensor that every rank holds alike then has, on each rank, a
+# gradient that is its part of the whole (the whole is their sum). The
+# functions below give each collective its conjugate so that, on any
+# mesh, the gradient a rank finds for each of its shards is that shard's
+# block of the one-device gradient. Each is the plain collective above
+# when no gradient is asked for (the serving path), and the identity on
+# an axis of one rank.
+
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _summed(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """A new tensor: the sum of ``x`` over ``axis``'s ranks."""
+    import torch.distributed as dist
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=_group(mesh, axis))
+    return out
+
+
+def _block(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over ``axis``."""
+    blk = shard_block(x.shape[dim], axis, mesh)
+    return x.narrow(dim, blk.start, blk.stop - blk.start)
+
+
+class _GradSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.mesh, ctx.axis), None, None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _summed(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+def _reduce_scatter(g: torch.Tensor, mesh, axis: str, dim: int):
+    """The sum of ``g`` over ``axis``'s ranks, this rank's block along
+    ``dim``."""
+    import torch.distributed as dist
+    # torch 2.13 renamed reduce_scatter_tensor, as all_gather's collective
+    scatter = getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
+    n = group_size(mesh, axis)
+    front = g.movedim(dim, 0).contiguous()
+    out = torch.empty((front.shape[0] // n,) + tuple(front.shape[1:]),
+                      dtype=g.dtype, device=g.device)
+    scatter(out, front, group=_group(mesh, axis))
+    return out.movedim(0, dim)
+
+
+class _GatherPart(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), None, None,
+                None)
+
+
+def grad_sum(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """``x`` itself, its gradient summed over ``axis``: where a tensor
+    that every rank holds alike enters a region cut over ``axis`` (the
+    entry of a column-cut matmul), or a replicated weight is used inside
+    one."""
+    if mesh is None or group_size(mesh, axis) == 1 or not _needs_grad(x):
+        return x
+    return _GradSum.apply(x, mesh, axis)
+
+
+def reduce_sum(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """The sum of ``x`` over ``axis``, its gradient passed on unchanged:
+    the exit of a cut region into one that every rank computes alike. In
+    place where it can be when no gradient is asked for, as
+    :func:`all_reduce`."""
+    if mesh is None or group_size(mesh, axis) == 1:
+        return x
+    if not _needs_grad(x):
+        return all_reduce(x, mesh, axis)
+    return _Sum.apply(x, mesh, axis)
+
+
+def gather_whole(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """:func:`all_gather`, whose backward keeps this rank's block of the
+    gradient: for a result that every rank then uses alike (the vocab-cut
+    logits before the loss, a d-cut embedding)."""
+    if mesh is None or group_size(mesh, axis) == 1:
+        return x
+    if not _needs_grad(x):
+        return all_gather(x, mesh, axis, dim)
+    return _Gather.apply(x, mesh, axis, dim)
+
+
+def gather_part(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """:func:`all_gather`, whose backward sums the gradient over ``axis``
+    and keeps this rank's block of the sum (a reduce-scatter): for a
+    result that each rank then uses for its own part (q gathered to every
+    head_dim column, a weight's FSDP blocks)."""
+    if mesh is None or group_size(mesh, axis) == 1:
+        return x
+    if not _needs_grad(x):
+        return all_gather(x, mesh, axis, dim)
+    return _GatherPart.apply(x, mesh, axis, dim)
+
+
+def fsdp_gather(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """A weight's FSDP blocks all-gathered over ``data`` along ``dim``;
+    its gradient reduce-scattered (summed) back to this rank's block."""
+    return gather_part(x, mesh, "data", dim)
+
+
+def fsdp_tree(tree, specs, mesh):
+    """Each leaf of ``tree`` gathered over the data axis on the dim its
+    spec cuts over it (:func:`fsdp_gather`); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: fsdp_tree(v, specs[k], mesh) for k, v in tree.items()}
+    for dim, entry in enumerate(specs):
+        if "data" in _axes(entry):
+            return fsdp_gather(tree, mesh, dim)
+    return tree
+
+
+def cuts(spec: P, axis: str) -> bool:
+    """Whether ``spec`` cuts a dim over ``axis``."""
+    return any(axis in _axes(e) for e in spec)
+
+
+def local_shape(shape, spec: P, mesh) -> tuple:
+    """The shape of a rank's block of a tensor of ``shape`` under
+    ``spec`` (for any mesh, an abstract one included)."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        parts = 1
+        for axis in _axes(entry):
+            parts *= mesh_sizes(mesh)[axis]
+        if out[dim] % parts:
+            raise ValueError(f"a dim of {out[dim]} does not split into "
+                             f"{parts} equal blocks")
+        out[dim] //= parts
+    return tuple(out)

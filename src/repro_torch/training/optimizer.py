@@ -8,6 +8,12 @@ that discards the old state (the JAX dry-run donates params and optimizer
 state to the train step). ``adamw_update`` is its functional form: the
 same update on copies, so a tree handed out (a trainer's ``params``, a
 patch) stays as it was.
+
+On a mesh (``specs=``, ``mesh=``) the trees hold a rank's shards laid out
+by ``specs`` (``param_pspecs``): the global norm sums each leaf's squares
+over the axes its spec cuts and counts a replicated leaf once, so every
+rank clips alike, and the update, elementwise, runs on the local shards
+of the master, m and v.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ import torch
 
 from repro_torch.models.common import flatten_with_keystr
 from repro_torch.models.common import tree_map as _map
+from repro_torch.sharding.local import all_reduce, cuts, group_size
+from repro_torch.sharding.rules import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,13 +77,48 @@ def init_opt_state(params) -> OptState:
                                      device=p.device), params))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
     """The L2 norm of every leaf together, summed in the JAX package's leaf
-    order."""
+    order. With ``specs`` and ``mesh`` the leaves are a rank's shards: each
+    leaf's sum of squares is all-reduced over the axes its spec cuts (one
+    all-reduce a set of axes, of every such leaf's sum at once), so a
+    replicated leaf is counted once, and every rank gets the norm of the
+    whole tree."""
+    sums = [torch.sum(torch.square(x.to(torch.float32)))
+            for _, x in flatten_with_keystr(tree)]
+    if specs is not None:
+        sums = _summed_over_cuts(sums, [s for _, s in _spec_leaves(specs)],
+                                 mesh)
     total = 0
-    for _, x in flatten_with_keystr(tree):
-        total = total + torch.sum(torch.square(x.to(torch.float32)))
+    for x in sums:
+        total = total + x
     return torch.sqrt(total)
+
+
+def _spec_leaves(specs):
+    """``(path, spec)`` in ``flatten_with_keystr``'s order."""
+    if isinstance(specs, P):
+        return [((), specs)]
+    return [((k,) + path, s) for k in sorted(specs)
+            for path, s in _spec_leaves(specs[k])]
+
+
+def _summed_over_cuts(sums, specs, mesh):
+    """Each of ``sums`` all-reduced over the mesh axes its spec cuts."""
+    axes = [tuple(a for a in ("data", "model")
+                  if group_size(mesh, a) > 1 and cuts(sp, a))
+            for sp in specs]
+    out = list(sums)
+    for key in sorted(set(axes)):
+        if not key:
+            continue
+        idx = [i for i, a in enumerate(axes) if a == key]
+        vec = torch.stack([sums[i] for i in idx])
+        for axis in key:
+            vec = all_reduce(vec, mesh, axis)
+        for j, i in enumerate(idx):
+            out[i] = vec[j]
+    return out
 
 
 def _is_matrix(path) -> bool:
@@ -107,9 +150,10 @@ def _put(tree, path, value):
     tree[path[-1]] = value
 
 
-def _step_scalars(cfg: AdamWConfig, grads, opt: OptState):
+def _step_scalars(cfg: AdamWConfig, grads, opt: OptState, specs=None,
+                  mesh=None):
     """(grad norm, clip factor, new step, lr, b1 and b2 corrections)."""
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, mesh)
     # a true division (torch's ``scalar / tensor`` multiplies by the
     # reciprocal, which rounds differently from XLA's divide)
     clip = torch.clamp_max(
@@ -141,7 +185,7 @@ def _drop(tree, path) -> None:
 
 
 def adamw_update_(cfg: AdamWConfig, grads, opt: OptState, params,
-                  param_dtype=torch.bfloat16,
+                  param_dtype=torch.bfloat16, specs=None, mesh=None,
                   ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step on ``grads``, written in place: the master, m and v
     leaves of ``opt`` and the leaves of ``params`` are updated in their
@@ -151,8 +195,10 @@ def adamw_update_(cfg: AdamWConfig, grads, opt: OptState, params,
     leaf is converted to f32 a piece at a time (a few rows of the leading
     dim, as the ops are elementwise) and removed from ``grads`` once its
     update is written, so no f32 copy of the whole gradient tree is
-    made."""
-    gnorm, clip, step, lr, b1c, b2c = _step_scalars(cfg, grads, opt)
+    made. ``specs``, ``mesh``: the trees are a rank's shards (module
+    docstring)."""
+    gnorm, clip, step, lr, b1c, b2c = _step_scalars(cfg, grads, opt, specs,
+                                                    mesh)
     for path in list(_paths(grads)):
         grad, p = _get(grads, path), _get(params, path)
         # a leaf of another dtype (an f32 SSM leaf among bf16 params) comes
@@ -184,7 +230,7 @@ def adamw_update_(cfg: AdamWConfig, grads, opt: OptState, params,
 
 
 def adamw_update(cfg: AdamWConfig, grads, opt: OptState,
-                 param_dtype=torch.bfloat16,
+                 param_dtype=torch.bfloat16, specs=None, mesh=None,
                  ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """Returns (new_params, new_opt_state, stats): ``adamw_update_`` on
     copies of the optimizer state and on new params of ``param_dtype``,
@@ -194,4 +240,4 @@ def adamw_update(cfg: AdamWConfig, grads, opt: OptState,
     params = _map(lambda g: torch.empty(g.shape, dtype=param_dtype,
                                         device=g.device), grads)
     return adamw_update_(cfg, _map(lambda g: g, grads), new, params,
-                         param_dtype)
+                         param_dtype, specs, mesh)

@@ -46,15 +46,18 @@ def as_tensor(x) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
-                      dtype=None, mesh=None) -> Dict[str, Any]:
+                      dtype=None, mesh=None, specs=None) -> Dict[str, Any]:
     """The port's param tree from a numpy copy of the JAX one, on ``device``,
     cast when ``dtype`` is given to the leaf types of a ``dtype`` model.
     Raises if a path or shape differs from ``cfg``'s. With a ``mesh`` each
-    leaf is cut to this rank's block of the serving layout on the host,
-    before it moves, so no device ever holds a whole sharded leaf."""
+    leaf is cut to this rank's block of the serving layout, or of the
+    layout of ``specs`` when given (``param_pspecs(cfg, mesh)`` for
+    training), on the host, before it moves, so no device ever holds a
+    whole sharded leaf."""
     device = resolve_device(device)
-    specs = None
-    if mesh is not None:
+    if mesh is None:
+        specs = None
+    elif specs is None:
         from repro_torch.sharding.rules import serving_param_pspecs
         specs = serving_param_pspecs(cfg, mesh)
 

@@ -1067,3 +1067,26 @@ def test_mesh_1x1_engine_slate_graph(mesh_1x1):
     np.testing.assert_array_equal(out[1][0], out[1][1])
     assert torch.equal(out[0][2], out[1][2])
     assert eng.slate_graph_stats()
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-780m"])
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_mesh_1x1_step_layer_bitwise_equals_one_device(mesh_1x1, arch, kind):
+    """``make_step_and_specs`` on a 1x1 NCCL mesh on the card (reduced, fp32,
+    the prefill and decode steps through the kernels): every output bit
+    for bit what ``make_step_and_inputs``' one-device step gives."""
+    from repro_torch.configs import InputShape, get_config, reduced
+    from repro_torch.launch import steps
+    from repro_torch.models.common import flatten_with_keystr
+
+    cfg = reduced(get_config(arch), d_model=64)
+    shape = InputShape(f"x_{kind}", 64, 2, kind)
+    step, args = steps.make_step_and_inputs(cfg, shape, device="cuda",
+                                            dtype=torch.float32)
+    mstep, margs, _, _ = steps.make_step_and_specs(
+        cfg, shape, mesh_1x1, device="cuda", dtype=torch.float32)
+    want = flatten_with_keystr(list(step(*args)))
+    got = flatten_with_keystr(list(mstep(*margs)))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, x), (_, y) in zip(got, want):
+        assert torch.equal(x, y), path

@@ -51,7 +51,8 @@ def test_import_without_jax():
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py", "tools/torch_sharded_equiv_check.py"]))
+    + [str(p.relative_to(ROOT)) for p in (ROOT / "tools").glob("torch_*.py")]
+    + ["chip_smoke.py"]))
 def test_source_imports_no_jax_or_repro(path):
     """A source scan: no ``import``/``from`` of jax, msgpack or repro."""
     src = (ROOT / path).read_text()

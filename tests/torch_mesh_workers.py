@@ -147,3 +147,221 @@ def sampled_on_mesh(mesh):
                          generator=torch.Generator().manual_seed(5))
     return {"plain": plain.sample(logits),
             "sharded": sharded.full_rows(sharded.sample(logits))}
+
+
+# ----------------------------------------------------------------------
+# The step layer on a mesh (tests/test_torch_steps_mesh.py)
+# ----------------------------------------------------------------------
+
+def unshard(x, spec, mesh):
+    """The whole tensor from this rank's block under ``spec``: each cut
+    dim all-gathered over its axes, the last-named first (every rank
+    must call it)."""
+    from repro_torch.sharding.local import all_gather
+    for dim, entry in enumerate(spec):
+        axes = () if entry is None else \
+            (entry,) if isinstance(entry, str) else tuple(entry)
+        for axis in reversed(axes):
+            x = all_gather(x, mesh, axis, dim)
+    return x
+
+
+def unshard_tree(tree, specs, mesh):
+    """:func:`unshard` over the leaves of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: unshard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    return unshard(tree, specs, mesh)
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().float().numpy() if tree.dtype != torch.bool \
+        else tree.cpu().numpy()
+
+
+def _train_cfg(mesh, microbatches, adamw):
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import TrainConfig
+    return TrainConfig(adamw=AdamWConfig(**adamw), microbatches=microbatches,
+                       remat=True, param_dtype=torch.float32, mesh=mesh)
+
+
+def _rank_batch(batch, mesh):
+    """This rank's rows of a numpy batch laid out by ``batch_pspec``."""
+    from repro_torch.sharding.local import local_shard
+    from repro_torch.sharding.rules import batch_pspec
+    rows = next(iter(batch.values())).shape[0]
+    spec = batch_pspec(mesh, rows)
+    return {k: local_shard(torch.from_numpy(np.asarray(v)),
+                           type(spec)(spec[0], *([None] * (v.ndim - 1))),
+                           mesh)
+            for k, v in batch.items()}
+
+
+def train_on_mesh(mesh, cases):
+    """One train step of each case on this mesh: ``cases`` maps a name to
+    (port cfg, numpy params in the JAX tree, numpy global batch,
+    microbatches, AdamW kwargs). The params are carried onto the mesh in
+    the training layout (``params_from_numpy(..., mesh=, specs=)``), the
+    batch cut over ``data``, the step run donating; returns, gathered,
+    the metrics, the updated params and the optimizer state."""
+    from repro_torch.sharding.rules import param_pspecs
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.weights import params_from_numpy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name, (cfg, tree, batch, nm, adamw) in cases.items():
+        specs = param_pspecs(cfg, mesh)
+        params = params_from_numpy(tree, cfg, "cpu", mesh=mesh, specs=specs)
+        step = make_train_step(cfg, _train_cfg(mesh, nm, adamw), donate=True)
+        params, opt, metrics = step(params, init_opt_state(params),
+                                    _rank_batch(batch, mesh))
+        out[name] = {
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "params": _numpy(unshard_tree(params, specs, mesh)),
+            **{f: _numpy(unshard_tree(getattr(opt, f), specs, mesh))
+               for f in ("master", "m", "v")}}
+    return out
+
+
+def grads_on_mesh(mesh, cases):
+    """Each rank's gradient of each of its shards (after the data-axis
+    sums) against that block of the one-device gradient from the same
+    whole params and batch: ``cases`` maps a name to (port cfg, seed,
+    numpy global batch). Returns {name: the worst abs difference over
+    every rank and leaf}."""
+    import copy
+
+    import torch.distributed as dist
+    from repro_torch.models.common import flatten_with_keystr
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding.local import shard_tree
+    from repro_torch.sharding.rules import param_pspecs
+    from repro_torch.training.train_loop import (TrainConfig, make_loss_fn,
+                                                 sum_over_data)
+
+    def grads(loss_fn, params, batch):
+        live = tree_map(lambda p: p.detach().clone().requires_grad_(True),
+                        params)
+        loss_fn(live, batch)[0].backward()
+        return tree_map(lambda p: p.grad, live)
+
+    out = {}
+    for name, (cfg, seed, batch) in cases.items():
+        whole = init_params(cfg, torch.Generator().manual_seed(seed),
+                            torch.float32, "cpu")
+        tb = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+        want = grads(make_loss_fn(cfg, TrainConfig(
+            param_dtype=torch.float32)), copy.deepcopy(whole), tb)
+        specs = param_pspecs(cfg, mesh)
+        got = grads(make_loss_fn(cfg, TrainConfig(
+            param_dtype=torch.float32, mesh=mesh)),
+            shard_tree(whole, specs, mesh), _rank_batch(batch, mesh))
+        sum_over_data(got, specs, mesh)
+        blocks = dict(flatten_with_keystr(shard_tree(want, specs, mesh)))
+        err = max(float((g - blocks[p]).abs().max())
+                  for p, g in flatten_with_keystr(got))
+        worst = torch.tensor([err])
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+        out[name] = float(worst)
+    return out
+
+
+class RingGathers:
+    """While on, every ``all_gather`` the package makes over ``data``
+    along a dim of ``capacity`` slots (a ring gathered whole), with the
+    bytes of those outputs alive at once and their most."""
+
+    def __init__(self, capacity):
+        self.capacity, self.live, self.most = capacity, 0, 0
+
+    def _freed(self, n):
+        self.live -= n
+
+    def __enter__(self):
+        import weakref
+        from unittest import mock
+
+        from repro_torch.launch import steps
+        from repro_torch.models import model
+        from repro_torch.sharding import local
+        real = local.all_gather
+
+        def gather(x, mesh, axis, dim):
+            out = real(x, mesh, axis, dim)
+            if axis == "data" and out.shape[dim] == self.capacity \
+                    and out is not x:
+                self.live += out.nbytes
+                self.most = max(self.most, self.live)
+                weakref.finalize(out, self._freed, out.nbytes)
+            return out
+
+        self._patches = [mock.patch.object(m, "all_gather", gather)
+                         for m in (local, model, steps)
+                         if hasattr(m, "all_gather")]
+        for patch in self._patches:
+            patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        for patch in self._patches:
+            patch.stop()
+
+
+def _one_layer_ring(caches, specs, mesh):
+    """The bytes of one layer's whole ring: each leaf that ``specs`` cuts
+    over ``data``, one repeat of it, times the data axis's size."""
+    from repro_torch.sharding.local import group_size
+    return sum(t[0].nbytes * group_size(mesh, "data")
+               for key, leaves in caches.items()
+               for name, t in leaves.items() if "data" in specs[key][name])
+
+
+def serve_steps_on_mesh(mesh, cases):
+    """The prefill and decode steps of ``make_step_and_specs`` on this
+    mesh: ``cases`` maps a name to (port cfg, kind, seq_len, numpy params
+    in the JAX tree, numpy args: the batch for "prefill"; caches, tokens
+    and pos for "decode"). Each arg is cut by the step's in-specs and
+    each output gathered by its out-specs. Returns (the outputs, and for
+    each decode case the most bytes of whole rings alive at once during
+    the step beside one layer's whole ring: ``RingGathers``)."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.steps import make_step_and_specs
+    from repro_torch.sharding.local import local_shard
+    from repro_torch.weights import as_tensor, params_from_numpy
+
+    def cut(x, spec):
+        if isinstance(x, dict):
+            return {k: cut(v, spec[k]) for k, v in x.items()}
+        return local_shard(as_tensor(x), spec, mesh)
+
+    out, rings = {}, {}
+    for name, (cfg, kind, seq, tree, args) in cases.items():
+        b = (args[0]["tokens"] if kind == "prefill" else args[1]).shape[0]
+        step, _, ins, outs = make_step_and_specs(
+            cfg, InputShape(name, seq, b, kind), mesh, device="cpu",
+            dtype=torch.float32, generator=torch.Generator().manual_seed(0))
+        params = params_from_numpy(tree, cfg, "cpu", mesh=mesh, specs=ins[0])
+        rest = [cut(a, s) for a, s in zip(args, ins[1:])]
+        with RingGathers(seq) as ring:
+            res = step(params, *rest)
+        if kind == "decode":
+            rings[name] = (ring.most, _one_layer_ring(rest[0], ins[1], mesh))
+        got = [unshard_tree(r, s, mesh) if isinstance(r, dict)
+               else unshard(r, s, mesh) for r, s in zip(res, outs)]
+        out[name] = [_numpy(g) if isinstance(g, dict) else g.numpy()
+                     for g in got]
+    return out, rings
+
+
+def step_layer_on_mesh(mesh, train, grads, serve):
+    """``train_on_mesh``, ``grads_on_mesh`` and ``serve_steps_on_mesh`` in
+    one mesh's processes."""
+    res = {"train": train_on_mesh(mesh, train),
+           "grads": grads_on_mesh(mesh, grads)}
+    res["serve"], res["rings"] = serve_steps_on_mesh(mesh, serve)
+    return res
