@@ -174,7 +174,25 @@
    peak memory a rank), a prefill at S 4096 and two ``decode_32k``
    steps at batch 2, rank 0's layer-0 kernel inputs held against the
    plain versions. With one card (b) prints one line saying it did not
-   run. ``--steps-mesh-only`` runs phase 21 alone, and no result line.
+   run. ``--steps-mesh-only`` runs phase 21 alone, and no result line;
+22. the dry run against the card (``launch/dryrun.py``: each step run
+   once on meta tensors under ``launch/op_analysis.py``): (a) after
+   phase 21 (a), full-width ``llama3.2-1b`` (bf16 from the seed) on a
+   1x1 NCCL mesh: a ``train_4k`` step, a prefill at S 4096 and a
+   ``decode_32k`` step, each at batch 1, first dry-run on meta at
+   exactly those arguments and then run on the card from fresh
+   arguments, its measured peak held to within 0.85-1.15x of the dry
+   run's estimate, and its ms beside the roofline's three terms and
+   model FLOPs over (s x peak); (b) last, with four cards, one process a
+   card: ``deepseek-67b``, ``command-r-plus-104b`` and ``mixtral-8x22b``
+   at full width (bf16) on 1x4: their ``train_4k`` step at batch 1
+   dry-run only and refused as not fitting, a prefill at S 4096 and a
+   ``decode_32k`` step at batch 1 dry-run and then run (a step the dry
+   run says does not fit is printed and not run), each rank's peak held
+   to the same band, the next tokens equal on the four ranks, layer 0's
+   kernel inputs against the plain versions, and each collective's share
+   of a second, collective-timed call. ``--dryrun-only`` runs phase 22
+   alone, and no result line.
 
 It needs a CUDA device: without one it exits non-zero and prints no result.
 The line before the last is the card's name and power limit; the last line
@@ -290,6 +308,15 @@ STEPS_PARAM_TOL, STEPS_M_REL_TOL = 1e-6, 1e-4
 STEPS_BIG_ARCH, STEPS_BIG_MESH, STEPS_BIG_BATCH = ("codeqwen1.5-7b", (2, 2),
                                                    2)
 STEPS_BIG_TRAIN_STEPS, STEPS_BIG_DECODE_STEPS = 3, 2
+# phase 22, the dry run against the card: (a) phase 21 (a)'s arch and
+# shapes at batch 1 on a 1x1 mesh; (b) the archs that need four cards, on
+# 1x4 at batch 1 (their train_4k step is dry-run only and must not fit);
+# the band that a measured peak must fall in, as a share of the dry run's
+# estimate
+DRYRUN_KINDS = ("train", "prefill", "decode")
+DRYRUN_CARDS_ARCHS = ("deepseek-67b", "command-r-plus-104b", "mixtral-8x22b")
+DRYRUN_CARDS_MESH = (1, 4)
+DRYRUN_PEAK_BAND = (0.85, 1.15)
 
 
 def card() -> str:
@@ -3705,7 +3732,8 @@ def run_frontend_archs(dev, gpu, report):
 # its own name
 COLLECTIVE_SITES = (
     ("repro_torch.sharding.local", ("all_gather", "all_reduce")),
-    ("repro_torch.models.attention", ("all_gather",)))
+    ("repro_torch.models.attention", ("all_gather",)),
+    ("repro_torch.launch.steps", ("all_gather",)))
 
 
 class CollectiveClock:
@@ -4609,6 +4637,370 @@ def run_steps_cards(gpu, device_type="cuda"):
     return big["launches"]
 
 
+# ----------------------------------------------------------------------
+# Phase 22: the dry run against the card
+# ----------------------------------------------------------------------
+
+def _hide_cards():
+    """A dry-run process's initializer: it works on meta tensors only, so
+    it keeps off the cards (a CUDA context would take their memory)."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+
+
+def _dryrun_kind(arch, kind, mesh_sizes):
+    """The dry run (``launch/dryrun.py``'s ``dry_run``, on meta tensors)
+    of one of ``arch``'s DRYRUN_KINDS steps at batch 1 on an abstract
+    mesh of ``mesh_sizes``."""
+    from repro_torch.launch.dryrun import dry_run
+    from repro_torch.sharding.rules import MeshShape
+    return dry_run(steps_config(arch), steps_shapes()[kind],
+                   MeshShape(tuple(mesh_sizes), ("data", "model")), batch=1)
+
+
+def dryrun_line(est) -> str:
+    """A dry run's estimate and roofline terms, for a printed line."""
+    m, rt = est["memory"], est["roofline"]
+    return (f"estimate {m['peak_bytes_per_device'] / 1e9:.3f} GB (arguments "
+            f"{m['argument_bytes_per_device'] / 1e9:.3f} GB), fits "
+            f"{est['fits']}; terms compute {rt['compute_s'] * 1e3:.3f} ms, "
+            f"memory {rt['memory_s'] * 1e3:.3f} ms, collective "
+            f"{rt['collective_s'] * 1e3:.3f} ms (dominant {rt['dominant']}); "
+            f"traced in {est['trace_s']:.2f} s")
+
+
+def check_peak(measured, est, label):
+    """``measured`` (bytes) within DRYRUN_PEAK_BAND of the dry run's
+    estimate; returns their ratio."""
+    ratio = measured / est["memory"]["peak_bytes_per_device"]
+    lo, hi = DRYRUN_PEAK_BAND
+    if not lo <= ratio <= hi:
+        raise SystemExit(f"{label}: measured peak {measured / 1e9:.3f} GB is "
+                         f"{ratio:.3f}x the dry run's estimate "
+                         f"{est['memory']['peak_bytes_per_device'] / 1e9:.3f}"
+                         f" GB, outside {DRYRUN_PEAK_BAND}")
+    return ratio
+
+
+def model_flops_share(est, ms) -> float:
+    """The step's model FLOPs over (its seconds x the card's bf16 peak)."""
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    rt = est["roofline"]
+    return rt["model_flops"] / rt["chips"] / (ms * 1e-3 * PEAK_FLOPS_BF16)
+
+
+def _fresh_step(cfg, shape, mesh, dev, sync):
+    """A step of ``make_step_and_specs`` at batch 1 from the seed, made
+    after freeing what the card caches: (step, args, the bytes allocated
+    before its arguments)."""
+    import gc
+
+    import torch
+    from repro_torch.launch.steps import make_step_and_specs
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    step, args, _, _ = make_step_and_specs(cfg, shape, mesh, batch=1,
+                                           device=dev,
+                                           generator=_seeded(dev))
+    sync()
+    # the init's freed draws back to the card, for NCCL's own allocations
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return step, args, base
+
+
+def _next_args(kind, args, out):
+    """The arguments of the step's second call: the updated params and
+    optimizer state (train), the same batch (prefill), the next token at
+    the next position on the updated caches (decode)."""
+    if kind == "train":
+        return (out[0], out[1], args[2])
+    if kind == "decode":
+        return (args[0], out[1], out[0][:, None], args[3] + 1)
+    return args
+
+
+def run_dryrun_1x1(dev, gpu, report):
+    """Phase 22 (a): full-width ``llama3.2-1b`` (bf16 from the seed) on a
+    1x1 NCCL mesh, its ``train_4k`` step, a prefill at S 4096 and a
+    ``decode_32k`` step at batch 1: each first dry-run on meta at exactly
+    these arguments, then run on the card from fresh arguments; the
+    measured peak (what the card allocated beyond what it held before the
+    arguments) within DRYRUN_PEAK_BAND of the estimate. A second call is
+    timed beside the roofline's terms, and records layer 0's kernel
+    inputs, which are held against the plain versions. Returns the
+    steps' kernel launches."""
+    import gc
+
+    import torch
+    from repro_torch.launch.mesh import close_mesh, make_serving_mesh
+    from repro_torch.models import attention as attn_mod
+
+    t0 = time.perf_counter()
+    cfg = steps_config(STEPS_ARCH)
+    shapes = steps_shapes()
+    est = {kind: _dryrun_kind(STEPS_ARCH, kind, (1, 1))
+           for kind in DRYRUN_KINDS}
+    print(f"phase 22 (a) dry runs of {cfg.name} at batch 1 on a 1x1 mesh in "
+          f"{time.perf_counter() - t0:.1f} s on the host")
+    ops = kernel_ops(STEPS_KERNELS)
+    launches = dict.fromkeys(STEPS_KERNELS, 0)
+    recorded = {"prefill": "flash_attention", "decode": "decode_attention"}
+    mesh = make_serving_mesh(1, 1, device=dev)
+    try:
+        for kind in DRYRUN_KINDS:
+            label = f"phase 22 (a) {cfg.name} {shapes[kind].name}"
+            step, args, base = _fresh_step(cfg, shapes[kind], mesh, dev,
+                                           torch.cuda.synchronize)
+            for op in ops.values():
+                op.launches = 0
+            out, ms = _timed(step, *args)
+            add_launches(launches, {n: op.launches for n, op in ops.items()})
+            measured = torch.cuda.max_memory_allocated(dev) - base
+            ratio = check_peak(measured, est[kind], label)
+            args = _next_args(kind, args, out)
+            del out
+            rec = calls = None
+            if kind in recorded:
+                rec, calls = record_calls(attn_mod, recorded[kind])
+            with rec or contextlib.nullcontext():
+                for op in ops.values():
+                    op.launches = 0
+                out, ms2 = _timed(step, *args)
+                add_launches(launches,
+                             {n: op.launches for n, op in ops.items()})
+            if kind == "train":
+                check_logits(out[2]["loss"].reshape(1, 1), label)
+            elif kind == "prefill":
+                check_logits(out[0], label)
+            else:
+                check_tokens(out[0][:, None], cfg.vocab_size, label)
+            print(f"{label} (S {shapes[kind].seq_len}, batch 1): measured "
+                  f"peak {measured / 1e9:.3f} GB, {ratio:.3f}x the dry run's "
+                  f"{dryrun_line(est[kind])}; ms a step {ms:.1f}, then "
+                  f"{ms2:.1f} (host clock, synchronised); model FLOPs over "
+                  f"(s x peak) {model_flops_share(est[kind], ms2):.4f} "
+                  f"[{gpu}]")
+            del step, args, out
+            gc.collect()
+            torch.cuda.empty_cache()
+            if kind == "prefill":
+                check_flash_rows("llama_dryrun", calls[0][0],
+                                 cfg.sliding_window, "llama3.2-1b layer-0 "
+                                 "prefill, phase 22 (a)", report, gpu)
+            elif kind == "decode":
+                check_decode_at("llama_dryrun", calls[0][0], "llama3.2-1b "
+                                "layer-0 decode_32k, phase 22 (a)", report,
+                                gpu)
+            del calls, rec
+    finally:
+        close_mesh()
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"phase 22 (a): a kernel never launched: {launches}")
+    print(f"time phase 22 (a): {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches} [{gpu}]")
+    return launches
+
+
+def dryrun_cards_worker(mesh, device_type, est):
+    """Phase 22 (b) on one rank: each of DRYRUN_CARDS_ARCHS at full width
+    (bf16 from the seed) on this mesh, each of its prefill (S 4096) and
+    ``decode_32k`` steps at batch 1 that its dry run ``est[arch]`` says
+    fits, run from fresh arguments: the rank's peak held to
+    DRYRUN_PEAK_BAND of the estimate, the logits finite and the next
+    tokens equal on every rank. The prefill's one call, and the second
+    of the decode's two (its first carries one-time costs), times each
+    collective and records layer 0's kernel inputs, which rank 0 holds
+    against the plain versions. Returns rank 0's numbers by arch, every
+    rank's peaks among them."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.sharding.local import all_gather, warm_groups
+
+    _quiet_ranks()
+    dev = _rank_device(device_type)
+    gpu = card() if device_type == "cuda" else "cpu"
+    sync = torch.cuda.synchronize if device_type == "cuda" else (lambda: None)
+    shapes = steps_shapes()
+    ops = kernel_ops(STEPS_KERNELS)
+    recorded = {"prefill": "flash_attention", "decode": "decode_attention"}
+    # the communicators' buffers before the params nearly fill the card
+    warm_groups(mesh, dev)
+    results = {}
+    for arch in DRYRUN_CARDS_ARCHS:
+        cfg = steps_config(arch)
+        res = results[arch] = {"checks": {},
+                               "launches": dict.fromkeys(STEPS_KERNELS, 0)}
+        for kind in ("prefill", "decode"):
+            if not est[arch][kind]["fits"]:
+                continue
+            label = f"phase 22 (b) {arch} {shapes[kind].name}"
+            t0 = time.perf_counter()
+            step, args, base = _fresh_step(cfg, shapes[kind], mesh, dev,
+                                           sync)
+            init_s = time.perf_counter() - t0
+            clock = CollectiveClock()
+            rec, calls = record_calls(attn_mod, recorded[kind])
+            n_calls = 1 if kind == "prefill" else 2
+            ms = []
+            for i in range(n_calls):
+                with contextlib.ExitStack() as stack:
+                    if i == n_calls - 1:
+                        for patch in clock.patches() + [rec]:
+                            stack.enter_context(patch)
+                    for op in ops.values():
+                        op.launches = 0
+                    out, t = _timed(step, *args, sync=sync)
+                    add_launches(res["launches"], {n: op.launches
+                                                   for n, op in ops.items()})
+                ms.append(t)
+                if i == 0:
+                    measured = torch.cuda.max_memory_allocated(dev) - base
+                    peaks = [None] * dist.get_world_size()
+                    dist.all_gather_object(peaks, measured)
+                    ratios = [check_peak(m, est[arch][kind],
+                                         f"{label} rank {r}")
+                              for r, m in enumerate(peaks)]
+                    if kind == "prefill":
+                        check_logits(out[0], label)
+                        # the rank's vocab block of the logits, whole
+                        toks = torch.argmax(all_gather(
+                            out[0].float().contiguous(), mesh, "model",
+                            -1), dim=-1)
+                    else:
+                        toks = out[0]
+                    every = [None] * dist.get_world_size()
+                    dist.all_gather_object(every, toks.tolist())
+                    if any(e != every[0] for e in every):
+                        raise SystemExit(f"{label}: the ranks' next tokens "
+                                         f"differ: {every}")
+                    check_tokens(toks[:, None], cfg.vocab_size, label)
+                args = _next_args(kind, args, out)
+                del out
+            res[kind] = {"ms": ms, "init_s": init_s, "peaks": peaks,
+                         "ratios": ratios, "tokens": every[0],
+                         "shares": {k: (clock.calls[k], v, v / ms[-1])
+                                    for k, v in clock.ms.items()}}
+            del step, args
+            gc.collect()
+            torch.cuda.empty_cache()
+            if dist.get_rank() == 0 and device_type == "cuda":
+                report = {"flash_attention": {}, "decode_attention": {}}
+                name = recorded[kind]
+                if kind == "prefill":
+                    check_flash_rows("cards", calls[0][0],
+                                     cfg.sliding_window, f"{arch} layer-0 "
+                                     "prefill, rank 0 shard", report, gpu)
+                else:
+                    check_decode_at("cards", calls[0][0], f"{arch} layer-0 "
+                                    "decode_32k, rank 0 shard", report, gpu)
+                res["checks"][name] = {k: report[name][f"cards_{k}"]
+                                       for k in ("ms", "plain_ms",
+                                                 "max_abs_err")}
+            del calls, rec
+            gc.collect()
+            dist.barrier()
+    return results
+
+
+def run_dryrun_cards(gpu, device_type="cuda"):
+    """Phase 22 (b), with at least four cards, one process a card: each of
+    DRYRUN_CARDS_ARCHS on DRYRUN_CARDS_MESH, first dry-run (each step in
+    a process of its own, all at once; a train_4k step must not fit),
+    then the steps that fit run by ``dryrun_cards_worker``. Returns their
+    launches."""
+    import gc
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from repro_torch.launch.mesh import hbm_bytes, run_on_mesh
+
+    cards = torch.cuda.device_count() if device_type == "cuda" else 4
+    if cards < 4:
+        print(f"phase 22 (b): not run: it needs 4 cards and this machine "
+              f"has {cards} (torch.cuda.device_count()); the prefill and "
+              f"decode steps of {', '.join(DRYRUN_CARDS_ARCHS)} at full "
+              f"width on 1x4 run on four cards")
+        return {}
+    t0 = time.perf_counter()
+    shapes = steps_shapes()
+    sizes = f"{DRYRUN_CARDS_MESH[0]}x{DRYRUN_CARDS_MESH[1]}"
+    jobs = [(a, k) for a in DRYRUN_CARDS_ARCHS for k in DRYRUN_KINDS]
+    with ProcessPoolExecutor(len(jobs), multiprocessing.get_context(
+            "spawn"), initializer=_hide_cards) as pool:
+        futures = {job: pool.submit(_dryrun_kind, *job, DRYRUN_CARDS_MESH)
+                   for job in jobs}
+        est = {a: {k: futures[a, k].result() for k in DRYRUN_KINDS}
+               for a in DRYRUN_CARDS_ARCHS}
+    dry_s = time.perf_counter() - t0
+    for arch in DRYRUN_CARDS_ARCHS:
+        for kind, e in est[arch].items():
+            e["fits"] = e["memory"]["peak_bytes_per_device"] <= hbm_bytes()
+            print(f"phase 22 (b) {arch} {shapes[kind].name} at batch 1 on "
+                  f"{sizes}, dry run: {dryrun_line(e)}"
+                  + ("" if e["fits"] or kind == "train" else
+                     "; not run: the dry run says it does not fit")
+                  + f" [{gpu}]")
+        if est[arch]["train"]["fits"]:
+            raise SystemExit(f"phase 22 (b) {arch}: the dry run says its "
+                             f"train_4k step fits a card at {sizes}")
+    gc.collect()
+    if device_type == "cuda":
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    # the ranks draw each leaf whole and keep their block: expandable
+    # segments keep those freed draws from fragmenting a card that the
+    # rank's own params nearly fill
+    with mock.patch.dict(os.environ, {
+            "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}):
+        res = run_on_mesh(*DRYRUN_CARDS_MESH, dryrun_cards_worker,
+                          device_type, est, device=device_type,
+                          timeout_s=900)
+    launches = {}
+    for arch, r_arch in res.items():
+        for kind in ("prefill", "decode"):
+            if kind not in r_arch:
+                continue
+            r = r_arch[kind]
+            e = est[arch][kind]
+            print(f"phase 22 (b) {arch} {shapes[kind].name} (S "
+                  f"{shapes[kind].seq_len}, batch 1) on {sizes}: measured "
+                  f"peak a rank {[round(x / 1e9, 3) for x in r['peaks']]} GB,"
+                  f" {[round(x, 3) for x in r['ratios']]}x the estimate "
+                  f"{e['memory']['peak_bytes_per_device'] / 1e9:.3f} GB; "
+                  f"next tokens {r['tokens']} on every rank; args made in "
+                  f"{r['init_s']:.1f} s; ms a call "
+                  f"{[round(x, 1) for x in r['ms']]}, the last with each "
+                  f"collective synchronised, model FLOPs over (s x peak) "
+                  f"{model_flops_share(e, r['ms'][-1]):.4f}; collectives "
+                  f"in it: "
+                  + (", ".join(f"{k} {n} calls {ms:.1f} ms ({sh:.1%})"
+                               for k, (n, ms, sh) in r["shares"].items())
+                     or "none")
+                  + f" (host clock) [{gpu}]")
+        print(f"phase 22 (b) {arch}: kernels at rank 0's layer-0 inputs "
+              f"{r_arch['checks']} [{gpu}]")
+        add_launches(launches, r_arch["launches"])
+    print(f"time phase 22 (b): {time.perf_counter() - t0:.1f} s (dry runs "
+          f"{dry_s:.1f} s, the cards {time.perf_counter() - t1:.1f} s with "
+          f"their processes' start); launches {launches} [{gpu}]")
+    return launches
+
+
+def dryrun_only(dev, gpu) -> int:
+    """``--dryrun-only``: phase 22 alone, (a) and then (b) where there are
+    four cards. Prints its checks and times, and no result line."""
+    report = {"flash_attention": {}, "decode_attention": {}}
+    launches = run_dryrun_1x1(dev, gpu, report)
+    add_launches(launches, run_dryrun_cards(gpu))
+    print(f"phase 22 alone: launches {launches} [{gpu}]")
+    return 0
+
+
 def steps_mesh_only(dev, gpu) -> int:
     """``--steps-mesh-only``: phase 21 alone, (a) and then (b) where there
     are four cards. Prints its checks and times, and no result line."""
@@ -4663,6 +5055,8 @@ def main(argv=None) -> int:
         return mesh_only(dev, gpu)
     if argv == ["--steps-mesh-only"]:
         return steps_mesh_only(dev, gpu)
+    if argv == ["--dryrun-only"]:
+        return dryrun_only(dev, gpu)
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -4686,8 +5080,10 @@ def main(argv=None) -> int:
     scenario_launches = run_scenarios(dev, gpu)
     frontend_launches = run_frontend_archs(dev, gpu, report)
     steps_launches = run_steps_1x1(dev, gpu, report)
+    dryrun_launches = run_dryrun_1x1(dev, gpu, report)
     cards_launches = run_mesh_cards(gpu)
     steps_cards_launches = run_steps_cards(gpu)
+    dryrun_cards_launches = run_dryrun_cards(gpu)
     missing = set(names) ^ set(report)
     if missing:
         raise SystemExit(f"kernels without a check: {sorted(missing)}")
@@ -4696,7 +5092,9 @@ def main(argv=None) -> int:
                     *ab_launches.items(), *scenario_launches.items(),
                     *frontend_launches.items(), *mesh_launches.items(),
                     *steps_launches.items(), *cards_launches.items(),
-                    *steps_cards_launches.items()):
+                    *steps_cards_launches.items(),
+                    *dryrun_launches.items(),
+                    *dryrun_cards_launches.items()):
         launches[name] = launches.get(name, 0) + n
     kernels = [dict(report[n], launches=launches[n]) for n in names]
     print(json.dumps({"kernels": kernels}))

@@ -19,6 +19,8 @@ from typing import Dict, Iterable
 
 import torch
 
+from repro_torch.launch.op_analysis import kernel_scope
+
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -89,6 +91,21 @@ def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
+
+
+def on_meta(name: str, inputs, outputs, plain):
+    """A wrapper's meta route (the dry run, ``launch/dryrun.py``), after
+    the same checks as its CUDA route: ``outputs``, the empty meta
+    tensors that the kernel would write, allocated by the caller and
+    nothing more (no S x S scores). Under an active
+    ``launch/op_analysis.py`` analysis the kernel's traffic is
+    ``inputs`` and ``outputs``, and ``plain()`` (the plain version on
+    the meta inputs) runs for its FLOPs only; with none active it does
+    not run."""
+    with kernel_scope(name, inputs, outputs) as counting:
+        if counting:
+            plain()
+    return outputs
 
 
 def check_no_grad(name: str, *tensors) -> None:

@@ -1,5 +1,8 @@
 """``decode_attention``: the CUDA kernel for CUDA tensors, the plain
-version for CPU tensors."""
+version for CPU tensors. On meta tensors (the dry run) it checks them as
+the CUDA route does and returns an empty output of the kernel's shape,
+reporting the plain version's FLOPs to an active analysis
+(``_build.on_meta``)."""
 from __future__ import annotations
 
 import ctypes
@@ -54,6 +57,11 @@ def decode_attention(q, k_cache, v_cache, pos, stored):
     _check("v_cache", v_cache, q.dtype, (b, w, nkv, hd), dev)
     _check("pos", pos, torch.int32, (b,), dev)
     _check("stored", stored, torch.bool, (b, w), dev)
+    if dev.type == "meta":
+        args = (q, k_cache, v_cache, pos, stored)
+        return _build.on_meta("decode_attention", args,
+                              (torch.empty_like(q),),
+                              lambda: decode_attention_ref(*args))[0]
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("decode_attention: the kernel reads the K/V cache "
                          "in 16-byte loads; its storage must be 16-byte "

@@ -1,5 +1,8 @@
 """``flash_attention``: the CUDA kernel for CUDA tensors, the plain
-version for CPU tensors."""
+version for CPU tensors. On meta tensors (the dry run) it checks them as
+the CUDA route does and returns an empty output of the kernel's shape,
+reporting the plain version's FLOPs to an active analysis
+(``_build.on_meta``)."""
 from __future__ import annotations
 
 import ctypes
@@ -54,6 +57,11 @@ def flash_attention(q, k, v, qpos, kpos, kvalid, *, window: int = 0):
     _check("qpos", qpos, torch.int32, (b, sq), dev)
     _check("kpos", kpos, torch.int32, (b, sk), dev)
     _check("kvalid", kvalid, torch.bool, (b, sk), dev)
+    if dev.type == "meta":
+        args = (q, k, v, qpos, kpos, kvalid)
+        return _build.on_meta(
+            "flash_attention", args, (torch.empty_like(q),),
+            lambda: attention_ref(*args, window=window))[0]
     if any(t.data_ptr() % 16 for t in (q, k, v)):  # 16-byte copies
         raise ValueError("flash_attention: q, k and v must be 16-byte "
                          "aligned")

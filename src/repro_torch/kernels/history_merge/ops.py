@@ -1,5 +1,7 @@
 """``history_merge``: the CUDA kernel for a CUDA tensor, the plain version
-for a CPU tensor."""
+for a CPU tensor. On meta tensors (the dry run) it checks them as the
+CUDA route does and returns empty outputs of the kernel's shapes,
+reporting its traffic to an active analysis (``_build.on_meta``)."""
 from __future__ import annotations
 
 import ctypes
@@ -47,6 +49,10 @@ def history_merge(batch_items, batch_ts, batch_valid, rt_items, rt_ts,
                          f"N={lb + lr}, K={out_len}")
     outs = [torch.empty((b, out_len), dtype=torch.int32, device=dev)
             for _ in range(3)]
+    if dev.type == "meta":
+        return _build.on_meta(
+            "history_merge", args, tuple(outs),
+            lambda: history_merge_ref(*args, out_len=out_len))
     err = _lib()(*[t.data_ptr() for t in (*args, *outs)], b, lb, lr, out_len,
                  dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "history_merge")

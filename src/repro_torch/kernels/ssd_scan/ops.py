@@ -1,5 +1,8 @@
 """``ssd_scan``: the CUDA kernel for CUDA tensors, the plain version
-(``ref.ssd_chunked``) for CPU tensors."""
+(``ref.ssd_chunked``) for CPU tensors. On meta tensors (the dry run) it
+checks them as the CUDA route does and returns empty outputs of the
+kernel's shapes, reporting the plain version's FLOPs to an active
+analysis (``_build.on_meta``)."""
 from __future__ import annotations
 
 import ctypes
@@ -64,6 +67,11 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256, init_state=None):
         _check("init_state", init_state, torch.float32, (b, nh, hp, ds), dev)
     y = torch.empty_like(x)
     h_final = torch.empty((b, nh, hp, ds), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        args = (x, dt, A, B, C, D)
+        return _build.on_meta(
+            "ssd_scan", args + (init_state,), (y, h_final),
+            lambda: ssd_chunked(*args, chunk=chunk, init_state=init_state))
     err = _lib()(*[t.data_ptr() for t in (x, dt, A, B, C, D)],
                  None if init_state is None else init_state.data_ptr(),
                  y.data_ptr(), h_final.data_ptr(), b, s, nh, hp, ds, chunk,

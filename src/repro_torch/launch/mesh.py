@@ -8,7 +8,9 @@ result; :func:`make_serving_mesh` builds the mesh inside one of them.
 Importing this module touches no device and no process group.
 
 ``SINGLE_POD``, ``MULTI_POD`` and :func:`n_chips` are the JAX package's
-production mesh shapes, kept as abstract shapes for the sharding rules.
+production mesh shapes, kept as abstract shapes for the sharding rules
+and the dry run (``launch/dryrun.py``). The hardware constants below are
+the roofline's (``launch/roofline.py``): datasheet figures of one GPU.
 """
 from __future__ import annotations
 
@@ -23,8 +25,16 @@ import torch
 
 from repro_torch.models.common import resolve_device
 
-SINGLE_POD = (16, 16)                # 256 chips (one v5e-256 pod)
-MULTI_POD = (2, 16, 16)              # 2 pods = 512 chips
+SINGLE_POD = (16, 16)                # ("data", "model"): 256 ranks
+MULTI_POD = (2, 16, 16)              # ("pod", "data", "model"): 512 ranks
+
+# NVIDIA H100 80GB HBM3 (SXM5, 700 W), datasheet figures a GPU
+PEAK_FLOPS_BF16 = 989.4e12           # FLOP/s, dense bf16 tensor cores
+HBM_BW = 3.35e12                     # B/s
+NVLINK_BW = 450e9                    # B/s one way, to the node's GPUs
+NET_BW = 50e9                        # B/s, one 400 Gb/s NIC a GPU
+HBM_BYTES = 80e9                     # B
+NODE_GPUS = 8                        # GPUs a node joins over NVLink
 
 # a collective that one rank never joins fails after this long instead of
 # hanging its peers
@@ -37,6 +47,14 @@ def n_chips(multi_pod: bool = False) -> int:
     for s in shape:
         n *= s
     return n
+
+
+def hbm_bytes() -> float:
+    """A rank's device memory: the card's own on a machine with one,
+    else the datasheet's ``HBM_BYTES``."""
+    if torch.cuda.is_available():
+        return float(torch.cuda.get_device_properties(0).total_memory)
+    return HBM_BYTES
 
 
 def make_serving_mesh(data: int = 1, model: int = 1, device="cuda"):

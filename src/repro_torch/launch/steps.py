@@ -22,7 +22,8 @@ local batch, not the pod's (``decode_32k``'s 128 x 32768 cache alone is
 1.7 TB for ``musicgen-large``).
 
 ``make_step_and_specs`` builds the same steps on a ("data", "model")
-mesh (``launch/mesh.py``; an abstract ``MeshShape`` for ``device="meta"``)
+mesh (``launch/mesh.py``; an abstract ``MeshShape`` for ``device="meta"``,
+on which the step runs as the dry run, ``launch/dryrun.py``)
 and returns, besides the step and a rank's example args, the in- and
 out-specs: the port's ``P`` trees that equal the ``.spec`` of the JAX
 ``make_step_and_specs``' ``NamedSharding``s leaf for leaf. Train and
@@ -63,9 +64,9 @@ from repro_torch.models.frontend import (audio_stub_embeds,
 from repro_torch.models.model import (cache_shapes, decode_step, init_cache,
                                       init_params, pattern_sig, prefill)
 from repro_torch.serving.engine import make_serve_step
-from repro_torch.sharding.local import (all_gather, local_shape,
-                                        local_shard, mesh_sizes, shard_block,
-                                        shard_tree)
+from repro_torch.sharding.local import (all_gather, dp_axes, group_size,
+                                        local_shape, local_shard, mesh_sizes,
+                                        shard_block, shard_tree)
 from repro_torch.sharding.rules import (P, ShardingRules, _ssm_cache_specs,
                                         batch_pspec, cache_pspecs, data_axes,
                                         opt_pspecs, param_pspecs)
@@ -317,8 +318,11 @@ def make_step_and_specs(cfg: ModelConfig, shape: InputShape, mesh, *,
     gives for the global batch ``batch`` (default the shape's), drawn in
     the same order from the same generator, so a 1x1 mesh's args and
     results are bit for bit the one-device step's. On "meta" nothing is
-    allocated and ``mesh`` may be an abstract ``MeshShape`` (the step can
-    then be built but not run)."""
+    allocated and ``mesh`` may be an abstract ``MeshShape``, a multi-pod
+    one of ("pod", "data", "model") included; the step then runs on the
+    meta args, its collectives and kernels taking their abstract routes
+    (``sharding/local.py``, the kernel wrappers' meta routes), which is
+    the dry run (``launch/dryrun.py``)."""
     device = resolve_device(device)
     cfg = arch_for_shape(cfg, shape)
     b = shape.global_batch if batch is None else batch
@@ -332,7 +336,7 @@ def make_step_and_specs(cfg: ModelConfig, shape: InputShape, mesh, *,
 
 def _train_setup(cfg, shape, mesh, b, device, dtype, gen):
     sizes = mesh_sizes(mesh)
-    dp = sizes["data"]
+    dp = group_size(mesh, dp_axes(mesh))
     if b % dp:
         raise ValueError(f"a global batch of {b} does not split over the "
                          f"{dp} data ranks")
@@ -414,7 +418,7 @@ def _decode_setup(cfg, shape, mesh, b, device, dtype, gen):
         pos = local_shard(pos, P(bspec[0]), mesh)
     # a batch that does not split over data leaves the ring's slots cut
     # over it instead (cache_pspecs): each layer gathers its own
-    ring_cut = bspec[0] is None and mesh_sizes(mesh)["data"] > 1
+    ring_cut = bspec[0] is None and group_size(mesh, dp_axes(mesh)) > 1
 
     def serve_step(params, caches, tokens, pos):
         logits, caches = decode_step(params, cfg, caches, tokens, pos,

@@ -54,8 +54,9 @@ from repro_torch.models.common import flatten_with_keystr, normal_init
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.norms import init_rmsnorm, rmsnorm
-from repro_torch.sharding.local import (all_gather, fsdp_tree, gather_whole,
-                                        grad_sum, shard_block, shard_tree)
+from repro_torch.sharding.local import (all_gather, cuts, dp_axes,
+                                        fsdp_tree, gather_whole, grad_sum,
+                                        shard_block, shard_tree)
 
 NEG_INF = -1e30
 
@@ -312,14 +313,15 @@ def _layer_specs(specs):
 def _slot_dim(spec):
     """The dim of a cache leaf that ``spec`` cuts over the data axis, if
     any."""
-    return next((d for d, e in enumerate(spec) if e == "data"), None)
+    return next((d for d, e in enumerate(spec) if cuts((e,), "data")),
+                None)
 
 
 def _gather_slots(cache, lspecs, mesh):
     """One layer's cache with each leaf that ``lspecs`` cuts over the data
     axis all-gathered (the whole ring)."""
     return {name: t if _slot_dim(lspecs[name]) is None else
-            all_gather(t, mesh, "data", _slot_dim(lspecs[name]))
+            all_gather(t, mesh, dp_axes(mesh), _slot_dim(lspecs[name]))
             for name, t in cache.items()}
 
 
@@ -331,7 +333,7 @@ def _keep_slots(own, run, lspecs, mesh):
     for name, t in run.items():
         dim = _slot_dim(lspecs[name])
         if dim is not None:
-            blk = shard_block(t.shape[dim], "data", mesh)
+            blk = shard_block(t.shape[dim], dp_axes(mesh), mesh)
             t = t.narrow(dim, blk.start, blk.stop - blk.start)
             if own is not None:
                 t = own[name].copy_(t)

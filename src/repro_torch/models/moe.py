@@ -46,8 +46,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import scaled_init
-from repro_torch.sharding.local import (group_size, grad_sum, reduce_sum,
-                                        shard_block)
+from repro_torch.sharding.local import (dp_axes, group_size, grad_sum,
+                                        reduce_sum, shard_block)
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device
@@ -137,10 +137,11 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, mesh=None,
     # ---- Switch-style load balance loss ------------------------------
     experts = torch.arange(e, device=x.device)
     assign = (top_e[..., :1] == experts).float()  # top-1 fraction
-    if aux_over_data and group_size(mesh, "data") > 1:
-        rows = b * s * group_size(mesh, "data")
-        f_e = reduce_sum(assign.sum(dim=(0, 1)), mesh, "data") / rows
-        p_e = reduce_sum(probs.sum(dim=(0, 1)), mesh, "data") / rows
+    dp = dp_axes(mesh)
+    if aux_over_data and group_size(mesh, dp) > 1:
+        rows = b * s * group_size(mesh, dp)
+        f_e = reduce_sum(assign.sum(dim=(0, 1)), mesh, dp) / rows
+        p_e = reduce_sum(probs.sum(dim=(0, 1)), mesh, dp) / rows
     else:
         f_e = assign.mean(dim=(0, 1))
         p_e = probs.mean(dim=(0, 1))

@@ -36,9 +36,10 @@ device tensors**.
 On a device mesh the pool is laid out by ``slot_pool_pspecs``: the slot
 axis is replicated over ``data`` (every rank holds every slot) and the
 model dims are the rank's shards, as in ``seq_cache_pspecs``. ``gather``
-reads only the rank's rows of the pane from its own copy, with no
-collective; ``scatter`` all-gathers the prefill pane over ``data`` first
-and writes every row into every rank's copy. ``slot_nbytes`` counts a
+reads only the rank's rows of the pane from its own copy, and
+``scatter`` writes every row of the whole prefill pane (which the caller
+all-gathers over ``data``, ``engine.full_pane``) into every rank's copy:
+neither runs a collective (``tools/torch_slot_pool_check.py``). ``slot_nbytes`` counts a
 slot as one device would hold it (``ServingEngine.logical_nbytes``), so
 ``stats()`` is the same on every mesh. The JAX package does the same
 with one-hot contractions; indexed copies need none.
@@ -133,9 +134,8 @@ class DeviceStatePool:
         trailing pad rows of the pane are simply not listed; the slots
         are distinct). In place. The slot keeps the prefill's LAST
         position logits — the next-item scores when a request carries no
-        fresh suffix. On a mesh the pane is all-gathered over ``data``
-        first."""
-        state = self.engine.full_pane(state)
+        fresh suffix. On a mesh ``state`` is the whole pane, every row
+        (``engine.full_pane``)."""
         idx = self._index(slots)
         n = len(slots)
         _tree_map(lambda pool, rows: pool.index_copy_(1, idx, rows[:, :n]),

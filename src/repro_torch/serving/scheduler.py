@@ -1555,7 +1555,8 @@ class Gateway:
                     scratch.append(s)
                 pinned.add(s)
                 slot_of[key] = s
-            self.pool.scatter(state, [slot_of[k] for k in miss_keys])
+            self.pool.scatter(self.engine.full_pane(state),
+                              [slot_of[k] for k in miss_keys])
         pane = last = None
         if gather:
             # short panes pad by repeating row 0's slot inside gather —

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.sharding.local import group_size, reduce_sum
+from repro_torch.sharding.local import dp_axes, group_size, reduce_sum
 
 
 def cross_entropy(logits, labels, valid=None, mesh=None):
@@ -26,12 +26,13 @@ def cross_entropy(logits, labels, valid=None, mesh=None):
     lab = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = logz - lab
     hit = (torch.argmax(logits, dim=-1) == labels).to(torch.float32)
-    if group_size(mesh, "data") > 1:
+    dp = dp_axes(mesh)
+    if group_size(mesh, dp) > 1:
         w = (torch.ones_like(nll) if valid is None
              else valid.to(torch.float32))
-        denom = torch.clamp_min(reduce_sum(w.sum(), mesh, "data"), 1.0)
-        return (reduce_sum((nll * w).sum(), mesh, "data") / denom,
-                reduce_sum((hit * w).sum(), mesh, "data") / denom)
+        denom = torch.clamp_min(reduce_sum(w.sum(), mesh, dp), 1.0)
+        return (reduce_sum((nll * w).sum(), mesh, dp) / denom,
+                reduce_sum((hit * w).sum(), mesh, dp) / denom)
     if valid is None:
         return nll.mean(), hit.mean()
     w = valid.to(torch.float32)

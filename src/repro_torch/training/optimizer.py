@@ -26,7 +26,7 @@ import torch
 from repro_torch.models.common import flatten_with_keystr
 from repro_torch.models.common import tree_map as _map
 from repro_torch.sharding.local import all_reduce, cuts, group_size
-from repro_torch.sharding.rules import P
+from repro_torch.sharding.rules import P, mesh_sizes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +105,7 @@ def _spec_leaves(specs):
 
 def _summed_over_cuts(sums, specs, mesh):
     """Each of ``sums`` all-reduced over the mesh axes its spec cuts."""
-    axes = [tuple(a for a in ("data", "model")
+    axes = [tuple(a for a in mesh_sizes(mesh)
                   if group_size(mesh, a) > 1 and cuts(sp, a))
             for sp in specs]
     out = list(sums)

@@ -39,8 +39,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import flatten_with_keystr
 from repro_torch.models.common import tree_map as _map
 from repro_torch.models.model import _forward
-from repro_torch.sharding.local import (all_reduce, cuts, gather_rows,
-                                        group_size, shard_block)
+from repro_torch.sharding.local import (all_reduce, cuts, dp_axes,
+                                        gather_rows, group_size,
+                                        shard_block)
 from repro_torch.sharding.rules import param_pspecs
 from repro_torch.training.losses import cross_entropy
 from repro_torch.training.optimizer import (AdamWConfig, OptState,
@@ -93,21 +94,22 @@ def _mesh_microbatches(batch, nm: int, mesh):
         mb = {}
         for k, v in whole.items():
             part = v.reshape((nm, v.shape[0] // nm) + v.shape[1:])[i]
-            mb[k] = part[shard_block(part.shape[0], "data", mesh)]
+            mb[k] = part[shard_block(part.shape[0], dp_axes(mesh), mesh)]
         out.append(mb)
     return out
 
 
 def sum_over_data(grads, specs, mesh) -> None:
-    """Each gradient whose leaf ``data`` does not cut, summed over
-    ``data`` in place: a rank's holds its rows' part."""
-    if group_size(mesh, "data") == 1:
+    """Each gradient whose leaf the data axes do not cut, summed over
+    them in place: a rank's holds its rows' part."""
+    dp = dp_axes(mesh)
+    if group_size(mesh, dp) == 1:
         return
     for k, g in grads.items():
         if isinstance(g, dict):
             sum_over_data(g, specs[k], mesh)
-        elif not cuts(specs[k], "data"):
-            grads[k] = all_reduce(g, mesh, "data")
+        elif not cuts(specs[k], dp):
+            grads[k] = all_reduce(g, mesh, dp)
 
 
 def _to_device(batch, device) -> Dict[str, torch.Tensor]:

@@ -23,7 +23,8 @@ FORBIDDEN = re.compile(
 
 
 def test_import_without_jax():
-    """Every module of the port, ``training/`` included, imports with
+    """Every module of the port, ``training/`` and the dry run's
+    ``launch/`` modules included, imports with
     ``jax``, ``msgpack`` and ``ml_dtypes`` made unimportable, and no
     module of ``repro`` comes along."""
     code = (
@@ -39,6 +40,8 @@ def test_import_without_jax():
         "for name in ('checkpoint', 'losses', 'online', 'optimizer',\n"
         "             'train_loop', '_msgpack'):\n"
         "    assert 'repro_torch.training.' + name in names, name\n"
+        "for name in ('dryrun', 'roofline', 'op_analysis'):\n"
+        "    assert 'repro_torch.launch.' + name in names, name\n"
         "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")

@@ -365,3 +365,22 @@ def step_layer_on_mesh(mesh, train, grads, serve):
            "grads": grads_on_mesh(mesh, grads)}
     res["serve"], res["rings"] = serve_steps_on_mesh(mesh, serve)
     return res
+
+
+def analysis_on_mesh(mesh, cfg, seq, batch):
+    """The train, prefill and decode steps of ``cfg`` (fp32, seed 0) at
+    ``seq`` x ``batch`` through ``make_step_and_specs`` on this mesh, each
+    run once under ``op_analysis.analyze``: {kind: (the rank's FLOPs, its
+    collective records)}, rank 0's."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.op_analysis import analyze
+    from repro_torch.launch.steps import make_step_and_specs
+    out = {}
+    for kind, name in (("train", "train_4k"), ("prefill", "prefill_32k"),
+                       ("decode", "decode_32k")):
+        step, args, _, _ = make_step_and_specs(
+            cfg, InputShape(name, seq, batch, kind), mesh, device="cpu",
+            dtype=torch.float32, generator=torch.Generator().manual_seed(0))
+        _, cost = analyze(step, args)
+        out[kind] = (cost.flops, [list(c) for c in cost.collectives])
+    return out
